@@ -1,6 +1,8 @@
-"""Benchmark: SNP-updates/sec of the blocked-Gibbs engine on one chip.
+"""Benchmark: SNP-updates/sec of the blocked-Gibbs engine on one device.
 
-Prints ONE JSON line {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line {"metric", "value", "unit", "vs_baseline", "device"};
+"device" names the platform, device_kind, device count and (on a GPU) the
+card's power limit as nvidia-smi reports it.
 
 vs_baseline compares against an in-process emulation of the reference's
 sequential per-SNP loop (one ddot + one daxpy of length n per SNP over BLAS,
@@ -10,7 +12,7 @@ host's CPU — the reference publishes no numbers of its own (BASELINE.md).
 
 import json
 import os
-import sys
+import subprocess
 import time
 
 import numpy as np
@@ -44,10 +46,27 @@ def _pi_fold(model):
     return np.array([0.95, 0.05]), None
 
 
-def measure_engine(n, m, block, niter, model="BayesCpi", dtype=None):
+def device_info():
+    """Where the numbers were taken: JAX's device, and the card's name and
+    power limit (a card below its maximum limit runs slower under load)."""
     import jax
+
+    dev = jax.devices()[0]
+    info = {"platform": dev.platform, "kind": dev.device_kind,
+            "count": len(jax.devices())}
+    if dev.platform == "gpu":
+        info["card"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+    return info
+
+
+def measure_engine(n, m, block, niter, model="BayesCpi", dtype=None):
     import jax.numpy as jnp
 
+    from hibayes_tpu import runtime
     from hibayes_tpu.engine import gibbs as G
 
     dtype = dtype or jnp.float32
@@ -60,15 +79,12 @@ def measure_engine(n, m, block, niter, model="BayesCpi", dtype=None):
     pr = G.resolve_priors(y, float(np.asarray(data.vx).sum()), pi[0], nr=0)
 
     spec = G.GibbsSpec(
-        # prepare_gibbs_data may auto-pad the row axis (e.g. BENCH_N=50000):
-        # arrays use the padded count, statistics the real one
-        model=model, n=int(data.y.shape[0]), n_real=n,
-        m=m, m_pad=int(data.xpx.shape[0]), block=block,
+        model=model, n=n, m=m, m_pad=int(data.xpx.shape[0]), block=block,
         nc=0, nlevels=(), n_fold=len(pi), niter=niter, nburn=niter // 2, thin=5,
         nvar0=int((np.asarray(data.vx)[:m] == 0).sum()),
         dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare,
         s2vare=pr.s2vare, s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0,
-        use_pallas=jax.default_backend() != "cpu",
+        use_pallas=runtime.use_kernels(),
     )
 
     # warmup/compile with the IDENTICAL spec (niter is part of the jit key)
@@ -78,47 +94,15 @@ def measure_engine(n, m, block, niter, model="BayesCpi", dtype=None):
     state, samples, extras = G.run_chain(spec, data, pr, pi, seed=2)
     elapsed = time.time() - t0
     iters = spec.niter_eff
-    return iters * m / elapsed, elapsed, iters, spec, data
-
-
-def hbm_stats(spec, data, t_iter, n_chains=1):
-    """Achieved HBM bandwidth of the sweep vs the chip's speed-of-light
-    (VERDICT r5 item 8).  Bytes-touched model per iteration: the genotype
-    block layout crosses HBM once per iteration for the VMEM-resident
-    kernels (sweep_mc_t/_ti) and twice for the chunked-DMA variants (r0
-    pass + delta pass); W/P/residual traffic rides along (counted once).
-    v5e HBM speed-of-light: 819 GB/s."""
-    import jax
-    import jax.numpy as jnp
-
-    n_arr = int(data.X_blocks.shape[1])
-    geno_bytes = data.X_blocks.size * data.X_blocks.dtype.itemsize
-    interp = jax.default_backend() == "cpu"
-    sel = G_sel = None
-    try:
-        from hibayes_tpu.engine.gibbs import _select_sweep_mc
-
-        sel = _select_sweep_mc(spec, n_arr, max(n_chains, 1), jnp.float32,
-                               data.X_blocks.dtype.itemsize, interp)
-        G_sel = getattr(getattr(sel, "func", sel), "__name__", "")
-    except Exception:
-        G_sel = ""
-    passes = 1 if G_sel in ("sweep_mc_t", "sweep_mc_ti") else 2
-    aux = (data.W_blocks.size * 4                       # Gram blocks
-           + 4 * spec.m_pad * 4 * max(n_chains, 1) * 2  # P rows in+out
-           + 4 * n_arr * 4 * max(n_chains, 1))          # yadj/u in/out
-    bytes_per_iter = geno_bytes * passes + aux
-    gbps = bytes_per_iter / t_iter / 1e9
-    return {"kernel": G_sel or "xla", "hbm_gbps": round(gbps, 1),
-            "hbm_frac": round(gbps / 819.0, 3)}
+    return iters * m / elapsed
 
 
 def measure_engine_mc(n, m, block, niter, nchains, model="BayesCpi"):
-    """Aggregate SNP-updates/s of the fused multi-chain kernel (K chains share
-    each genotype block; chains ride the VPU lanes, SNPs the sublanes)."""
-    import jax
+    """Aggregate SNP-updates/s of K chains (the chains share each genotype
+    block's products; the draws kernel runs them in tiles of 16)."""
     import jax.numpy as jnp
 
+    from hibayes_tpu import runtime
     from hibayes_tpu.engine import gibbs as G
 
     rng = np.random.default_rng(0)
@@ -129,13 +113,12 @@ def measure_engine_mc(n, m, block, niter, nchains, model="BayesCpi"):
                                 geno_dtype="int8", fold=fold)
     pr = G.resolve_priors(y, float(np.asarray(data.vx).sum()), pi[0], nr=0)
     spec = G.GibbsSpec(
-        model=model, n=int(data.y.shape[0]), n_real=n,
-        m=m, m_pad=int(data.xpx.shape[0]), block=block,
+        model=model, n=n, m=m, m_pad=int(data.xpx.shape[0]), block=block,
         nc=0, nlevels=(), n_fold=len(pi), niter=niter, nburn=niter // 2, thin=5,
         nvar0=int((np.asarray(data.vx)[:m] == 0).sum()),
         dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare,
         s2vare=pr.s2vare, s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0,
-        use_pallas=jax.default_backend() != "cpu",
+        use_pallas=runtime.use_kernels(),
     )
     G.run_chains(spec, data, pr, pi, nchains=nchains, seed=1)  # compile
     t0 = time.time()
@@ -194,14 +177,12 @@ def main():
         ours, elapsed = measure_engine_mc(n, m, block, niter, nchains, model=model)
         label = f"SNP-updates/s ({model}, n={n}, m={m}, block={block}, chains={nchains})"
         # single-chain vs single-chain alongside the aggregate ratio, so the
-        # artifact is self-honest about what the 10^3x-scale number compares
-        ours_1, _, _, spec1, data1 = measure_engine(n, m, block, niter, model=model)
+        # artifact is self-honest about what the aggregate number compares
+        ours_1 = measure_engine(n, m, block, niter, model=model)
         extra["single_chain_value"] = round(ours_1, 1)
-        extra.update(hbm_stats(spec1, data1, m / max(ours_1, 1e-9)))
     else:
-        ours, elapsed, iters, spec1, data1 = measure_engine(n, m, block, niter, model=model)
+        ours = measure_engine(n, m, block, niter, model=model)
         label = f"SNP-updates/s ({model}, n={n}, m={m}, block={block})"
-        extra.update(hbm_stats(spec1, data1, m / max(ours, 1e-9)))
     base = measure_reference_emulation(min(n, 4096), min(m, 4096))
     if "single_chain_value" in extra:
         extra["single_chain_vs_baseline"] = round(extra["single_chain_value"] / base, 3)
@@ -213,6 +194,7 @@ def main():
                 "unit": "SNP-updates/s",
                 "vs_baseline": round(ours / base, 3),
                 **extra,
+                "device": device_info(),
             }
         )
     )

@@ -1,8 +1,8 @@
 """Posterior-agreement study: concurrent-shard schedule vs the exact chain
-(VERDICT r5 item 1b) at synthetic scale n=4096 x m=65,536.
+at synthetic scale n=4096 x m=65,536.
 
 Runs the exact single-device chain and the S=8 concurrent emulation (the
-SAME Markov kernel as an 8-chip distributed concurrent run) for full
+SAME Markov kernel as an 8-device distributed concurrent run) for full
 chains, then compares GEBV correlation, variance components (within the
 exact chain's Monte-Carlo error) and per-SNP effect correlation.
 
@@ -18,6 +18,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from hibayes_tpu import runtime
 from hibayes_tpu.engine import gibbs as G
 
 
@@ -59,7 +60,7 @@ def run(model="BayesCpi", n=4096, m=65_536, niter=3000, nburn=1500,
             thin=5, nvar0=int((np.asarray(data.vx)[:m] == 0).sum()),
             dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare,
             s2vare=pr.s2vare, s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0,
-            use_pallas=jax.default_backend() != "cpu",
+            use_pallas=runtime.use_kernels(),
             shard_schedule=schedule, emulate_shards=emu, merge_rounds=Rm_,
         )
         t0 = time.time()
@@ -128,7 +129,7 @@ def run_pipeline(model="BayesCpi", n=4096, m=65_536, niter=1000, nburn=500,
             thin=5, nvar0=int((np.asarray(data.vx)[:m] == 0).sum()),
             dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare,
             s2vare=pr.s2vare, s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0,
-            use_pallas=jax.default_backend() != "cpu",
+            use_pallas=runtime.use_kernels(),
             shard_schedule=schedule, emulate_shards=emu,
         )
         t0 = time.time()

@@ -1,5 +1,5 @@
 """Steady-state cost of the single-step epsilon sweep at qe ~= 80k
-(VERDICT r5 item 6).
+
 
 The in-chain epsilon term runs `blocked_mme_gibbs_sparse` — a single-site
 Gibbs sweep over LHS = scale*A_inv(nn) + diag(counts) (reference analogue:
@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 
 from hibayes_tpu.data.pedigree import make_ainv, make_ped, rcm_permutation
+from hibayes_tpu import runtime
 from hibayes_tpu.engine import gibbs as G
 
 
@@ -68,11 +69,10 @@ def main():
     z = jnp.asarray(rng.normal(0, 1, qe_pad).astype(np.float32))
 
     iters = 20
-    for use_pallas in (False, True):
+    for use_pallas in sorted({False, runtime.use_kernels()}):
         step = jax.jit(lambda x, z: G.blocked_mme_gibbs_sparse(
             sp_obj, counts, jnp.float32(1.7), x, b, jnp.float32(1.0), z,
-            use_pallas=use_pallas,
-            interpret=jax.default_backend() == "cpu"))
+            use_pallas=use_pallas))
         x, _ = jax.block_until_ready(step(x0, z))
         t0 = time.time()
         for _ in range(iters):
@@ -80,7 +80,9 @@ def main():
         jax.block_until_ready(x)
         dt = (time.time() - t0) / iters
         lbl = "pallas kernel" if use_pallas else "XLA site scan"
-        print(f"epsilon sweep [{lbl}]: {dt*1e3:.1f} ms/iter at qe={qe} "
+        dev = jax.devices()[0]
+        print(f"epsilon sweep [{lbl}] on {dev.platform}/{dev.device_kind}: "
+              f"{dt*1e3:.1f} ms/iter at qe={qe} "
               f"({qe/dt/1e6:.2f}M site-updates/s)", flush=True)
 
 

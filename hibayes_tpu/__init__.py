@@ -1,12 +1,13 @@
-"""hibayes_tpu: TPU-native Bayesian whole-genome regression and GWAS.
+"""hibayes_tpu: Bayesian whole-genome regression and GWAS on an NVIDIA GPU.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the hibayes
-R package (individual-level `ibrm`, summary-level `sbrm`, single-step
-`ssbrm` Bayesian models, LD matrix construction, PLINK ingestion), designed
-for TPU: blocked Gibbs on the MXU, mesh-sharded genotypes, psum-merged
-residual updates over ICI.
+A JAX/XLA/Pallas framework with the capabilities of the hibayes R package
+(individual-level `ibrm`, summary-level `sbrm`, single-step `ssbrm`
+Bayesian models, LD matrix construction, PLINK ingestion): exact blocked
+Gibbs on matrix products, Pallas-Triton kernels for the sequential draws,
+mesh-sharded genotypes with psum-merged residual updates.
 """
 
+from . import runtime
 from .data.ld import BlockDiagLD, DenseLD, SparseLD, ldmat
 from .data.plink import GenoMatrix, read_plink
 from .data.sparse_ld import TiledSparseLD, build_tiled_ld
@@ -23,6 +24,10 @@ __all__ = [
     "ibrm", "sbrm", "ssbrm", "BlrMod", "plot",
     "DenseLD", "SparseLD", "BlockDiagLD", "TiledSparseLD", "build_tiled_ld",
 ]
+
+
+if not runtime.cpu_only():
+    runtime.configure_compile_cache()
 
 
 def __getattr__(name):

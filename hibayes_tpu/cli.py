@@ -101,7 +101,7 @@ def main(argv=None):
     p_i.add_argument("--nchains", type=int, default=1)
     p_i.add_argument("--shards", type=int, default=1,
                      help="SNP-axis model-parallel shards (devices); the "
-                          "genotype/Gram blocks split across their HBMs")
+                          "genotype/Gram blocks split across their memories")
     p_i.add_argument("--shard-schedule", default="turn",
                      choices=("turn", "pipeline", "concurrent"),
                      help="m-MP sweep schedule: turn (exact), pipeline "

@@ -1,8 +1,8 @@
-"""LD (tXX) variance-covariance matrix construction on the MXU.
+"""LD (tXX) variance-covariance matrix construction on the device.
 
-TPU-native replacement for the reference's O(m^2*n/2) OpenMP pair loops
+Device-side (JAX) replacement for the reference's O(m^2*n/2) OpenMP pair loops
 (reference: src/tXXmat.cpp:101-840).  The covariance is one centered Gram
-matrix — (X'X - n mu mu')/n — i.e. a single MXU matmul instead of per-pair
+matrix — (X'X - n mu mu')/n — i.e. a single matmul instead of per-pair
 dot products; the chi-square sparsity threshold (keep |r|^2*n > chisq,
 tXXmat.cpp:147-152) becomes an elementwise mask.
 
@@ -16,7 +16,7 @@ Three layouts are produced, matching the reference's return types
 * ``BlockDiagLD`` — per-chromosome dense blocks (ldchr=False): the layout the
                     reference emulates with a block-sparse matrix
                     (tXXmat_Chr, tXXmat.cpp:504-605) and the natural sharded
-                    layout for large m on TPU
+                    layout for large m
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _cov_gram(X, dtype=jnp.float32):
-    """(Xc' Xc) / n with Xc column-centered; single MXU matmul."""
+    """(Xc' Xc) / n with Xc column-centered; single matmul."""
     X = jnp.asarray(X, dtype)
     n = X.shape[0]
     mu = jnp.mean(X, axis=0, keepdims=True)
@@ -42,7 +42,7 @@ def _cov_gram(X, dtype=jnp.float32):
 @jax.jit
 def _int_gram(X):
     """Exact X'X and column sums for small-integer genotype codes via the
-    MXU int8 path (int8 x int8 -> int32 accumulation; entries <= 4n stay
+    int8 path (int8 x int8 -> int32 accumulation; entries <= 4n stay
     exact for n < 2^29).  Faster AND exact vs the f32 Gram."""
     S = jax.lax.dot_general(
         X, X, (((0,), (0,)), ((), ())), preferred_element_type=jnp.int32
@@ -53,7 +53,7 @@ def _int_gram(X):
 
 def _cov_dense_np(Xsub) -> np.ndarray:
     """Dense covariance block as float64 numpy; integer genotypes take the
-    exact int8 MXU path (the centering is a rank-1 correction applied in
+    exact int8 path (the centering is a rank-1 correction applied in
     float64 on host, mirroring the mean-correction identity the reference
     uses in src/tXXmat.cpp:142-146)."""
     Xn = np.asarray(Xsub)
@@ -96,7 +96,7 @@ class DenseLD:
 
 @dataclass
 class SparseLD:
-    """Chi-square-pruned LD.  Dense storage with explicit zeros (TPU layout)
+    """Chi-square-pruned LD.  Dense storage with explicit zeros (device layout)
     plus the sparsity pattern; triggers SBayesS semantics in `sbrm`."""
 
     values: np.ndarray       # (m, m) with zeros outside the pattern
@@ -173,7 +173,7 @@ def ldmat(
     ldchr=False,
     dtype=jnp.float32,
     threads=0,  # accepted for reference-signature parity (R/ldm.r:38);
-                # the Gram matmul is MXU-scheduled, not host-threaded
+                # the Gram matmul is device-scheduled, not host-threaded
     tiled=False,
     tile=64,
     stripe=4096,
@@ -187,7 +187,7 @@ def ldmat(
     present in both panels (tXXmat_*_gwas, tXXmat.cpp:314-502).
 
     tiled=True -> an O(nnz) `TiledSparseLD` built by streaming genotype
-    column stripes through the MXU Gram (never materialising the m x m
+    column stripes through the device Gram (never materialising the m x m
     matrix; reference analog: the out-of-core bigmemory pair loop,
     src/tXXmat.cpp:101-184).  Requires chisq and/or a per-chromosome map;
     `stripe` bounds peak memory, `progress` prints the reference-style

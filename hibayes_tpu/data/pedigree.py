@@ -1,8 +1,8 @@
 """Pedigree processing: ordering, Henderson's A-inverse, partitions.
 
-TPU-native counterpart of the reference's pedigree kernels
+Device-side (JAX) counterpart of the reference's pedigree kernels
 (reference: src/rm.cpp:56-229).  Graph ordering and sparse assembly are
-host-side (irregular, data-dependent — not MXU work); the downstream solves
+host-side (irregular, data-dependent — not matrix work); the downstream solves
 and imputation matmuls run on device.
 """
 
@@ -167,7 +167,7 @@ def solve_a_ng(Ai_nn, Ai_ng):
 
 def coo_device(A):
     """Sparse matrix -> (rows, cols, vals) device arrays for the O(nnz)
-    segment-sum matvec (TPU-native sparse A-inverse operator)."""
+    segment-sum matvec (device-side sparse A-inverse operator)."""
     import jax.numpy as jnp
 
     coo = sp.coo_matrix(A)
@@ -206,7 +206,7 @@ class ImputationOperator:
         jax_enable_x64); residuals are recomputed in f64 on host against the
         scipy sparse matvec and the correction re-solved, so the final
         solution reaches f64 accuracy even on an f32-only device — the
-        standard TPU-idiomatic refinement loop."""
+        standard mixed-precision refinement loop."""
         V = np.asarray(V)
         squeeze = V.ndim == 1
         if squeeze:

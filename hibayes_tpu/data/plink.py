@@ -1,6 +1,6 @@
 """PLINK binary (.bed/.bim/.fam) ingestion.
 
-TPU-native replacement for the reference's out-of-core loader
+Device-side (JAX) replacement for the reference's out-of-core loader
 (reference: R/read_plink.r:24-77, src/read_bed.cpp:97-232).  Design:
 
 * the 2-bit .bed payload is decoded with a 256x4 lookup table — a single

@@ -1,9 +1,9 @@
 """Tiled (block-sparse-row) LD storage with O(nnz) memory.
 
-TPU-native replacement for the reference's sparse LD matrix
+Device-side (JAX) replacement for the reference's sparse LD matrix
 (`arma::sp_mat` CSC, reference: src/tXXmat.cpp:147-152 inserts only entries
 with r^2*n > chisq; src/SBayesS.cpp:292-296 iterates stored columns).  A CSC
-scalar layout is hostile to the MXU/VPU; instead the pruned matrix is stored
+scalar layout is hostile to matrix units; instead the pruned matrix is stored
 as fixed-size T x T tiles:
 
 * only tiles containing at least one surviving entry are stored (entries
@@ -18,7 +18,7 @@ as fixed-size T x T tiles:
 
 Memory = n_tiles * T^2 * itemsize — O(nnz) for banded/LD-decay patterns,
 vs O(m^2) for the dense layout.  Construction streams genotype column
-stripes through the exact int8 MXU Gram (`ldmat`-style), never materialising
+stripes through the exact int8 Gram (`ldmat`-style), never materialising
 the full m x m (reference analog: the out-of-core bigmemory pair loop,
 src/tXXmat.cpp:101-184).
 """
@@ -37,7 +37,7 @@ HIGHEST = jax.lax.Precision.HIGHEST
 
 @jax.jit
 def _int_cross_gram(Xi, Xj):
-    """Exact Xi'Xj (int8 MXU path, int32 accumulate) + column sums."""
+    """Exact Xi'Xj (int8 path, int32 accumulate) + column sums."""
     S = jax.lax.dot_general(
         Xi, Xj, (((0,), (0,)), ((), ())), preferred_element_type=jnp.int32
     )
@@ -73,8 +73,7 @@ def _device_tile_select(X_dev, sd_dev, chrom_dev, i0, j0,
     + forced diagonal) -> per-tile any-reduction -> gather the surviving
     T x T tiles into a fixed-size buffer.  Only O(surviving tiles) bytes
     ever cross the host link (the genotype uploads once; stripe blocks never
-    leave HBM) — what makes the streaming builder usable over a remote
-    device link.
+    leave device memory).
 
     Returns (idx (cap,) flat tile index or -1, tiles (cap, T, T), count,
     keep_col_counts, keep_row_counts)."""
@@ -263,7 +262,7 @@ def build_tiled_ld(
     gwas_geno=None,
     gwas_pos=None,
 ) -> TiledSparseLD:
-    """Stream genotype column stripes through the MXU Gram and keep only LD
+    """Stream genotype column stripes through the device Gram and keep only LD
     tiles with surviving entries — never materialising the m x m matrix.
 
     keep rule (per entry): r^2 * n > chisq (reference src/tXXmat.cpp:147-152),

@@ -8,7 +8,7 @@ draws the uninterrupted chain would have.
 
 Scope: SINGLE-CONTROLLER only.  `save_checkpoint` gathers every state leaf to
 host via `np.asarray`, which requires all shards to be addressable from this
-process — fine for any single-host mesh (1..N local chips), but a multi-host
+process — fine for any single-host mesh (1..N local devices), but a multi-host
 (`jax.distributed`) chain must either checkpoint per-host-addressable shards
 itself or use an orbax-style distributed checkpointer.  The multi-host loader
 path (`parallel/distributed.py`) documents the same boundary.

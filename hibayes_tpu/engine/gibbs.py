@@ -1,28 +1,30 @@
 """Individual-level MCMC engine: exact blocked Gibbs for the Bayesian alphabet.
 
-TPU-native redesign of the reference's monolithic sampler
-(reference: src/Bayes.cpp:477-917).  The reference updates SNP effects one at
-a time, each draw reading the residual vector mutated by the previous draw —
-an O(n*m) chain of BLAS-1 ops that is strictly sequential in m
-(src/Bayes.cpp:586-816).  The TPU formulation is mathematically *identical*
-but restructured around the MXU:
+A redesign of the reference's monolithic sampler (reference:
+src/Bayes.cpp:477-917).  The reference updates SNP effects one at a time,
+each draw reading the residual vector mutated by the previous draw — an
+O(n*m) chain of BLAS-1 ops that is strictly sequential in m
+(src/Bayes.cpp:586-816).  This formulation is mathematically *identical* but
+restructured around matrix products:
 
     for each block b of B SNPs:
-        r0   = X_b^T yadj                  # one (B,n)x(n,) matmul  (MXU)
-        scan j in 0..B-1:                  # tiny VPU scan, state in VMEM
+        r0   = X_b^T yadj                  # one (B,n)x(n,) product
+        scan j in 0..B-1:                  # B sequential draws on O(B) state
             rhs_j = r_local[j] + xpx_j g_j # == dot(X_j, yadj_current)
             draw g_j' per alphabet member
             r_local += (g_j - g_j') W_b[:, j]   # length-B axpy
-        yadj += X_b (g_b - g_b')           # one (n,B)x(B,) matmul  (MXU)
+        yadj += X_b (g_b - g_b')           # one (n,B)x(B,) product
 
 where W_b = X_b^T X_b is the precomputed block Gram matrix.  The identity
 dot(X_k, yadj + d*X_j) = dot(X_k, yadj) + d*W[k, j] makes the blocked update
 bit-for-bit equivalent to the sequential one in exact arithmetic (verified
-against a NumPy oracle in tests/test_blocked_exact.py).
+against a NumPy oracle in tests/test_blocked_exact.py).  On the GPU the B
+draws run in a Pallas-Triton kernel (`ops/blockgibbs.block_draws`); the
+per-SNP scan here is its reference.
 
 Multi-device: shard the *individual* axis of X/yadj/u over the mesh; the two
-matmuls contract over n so XLA inserts psums over ICI, while the inner scan
-runs replicated on O(B) state.  The chain remains exact under sharding.
+products contract over n so XLA inserts psums, while the draws run
+replicated on O(B) state.  The chain remains exact under sharding.
 
 All randomness is derived from deterministic per-iteration streams
 (fold_in(iter_key, STREAM_*)) so a NumPy oracle can replay a chain exactly.
@@ -127,8 +129,9 @@ class GibbsSpec:
     # SBayesS-style effect rejection guard (needs vary)
     reject_guard: bool = False
     vary: float = 1.0
-    # fused Pallas sweep kernel (TPU); falls back to the XLA scan when the
-    # configuration is unsupported (f64, rejection guard, oversized X_b)
+    # per-block draws in the Pallas kernels (set from hibayes_tpu.runtime:
+    # on for the GPU); configurations the kernel does not cover (f64, a
+    # block that is not a power of two >= 16) take the XLA scan
     use_pallas: bool = False
     # summary-level engine: per-chromosome LD segment sizes (padded and real)
     seg_sizes: tuple = ()
@@ -165,7 +168,7 @@ class GibbsSpec:
     merge_rounds: int = 1    # concurrent: residual merges per iteration
     # emulate the concurrent/pipeline schedule with S virtual shards on ONE
     # device (identical Markov kernel to the distributed run) — drives
-    # single-chip accuracy studies and cost measurement
+    # single-device accuracy studies
     emulate_shards: int = 0
 
     def __post_init__(self):
@@ -522,7 +525,7 @@ def alphabet_global_updates(
 
 
 def blocked_mme_gibbs(A, diagA, x, b, ve, z, block):
-    """Single-site Gibbs sweep over x | A x = b + noise, blocked for TPU.
+    """Single-site Gibbs sweep over x | A x = b + noise, blocked.
 
     Equivalent to the reference's sequential sampler (src/solver.cpp:119-140):
     x_i ~ N((b_i - sum_{k != i} A_ik x_k)/A_ii, ve/A_ii), processed in order.
@@ -574,7 +577,7 @@ def _epsl_matvec(sp: EpslSparse, x, q):
 
 
 def blocked_mme_gibbs_sparse(sp: EpslSparse, counts, scale, x, b, ve, z,
-                             use_pallas=False, interpret=False):
+                             use_pallas=False):
     """Single-site Gibbs sweep over LHS = scale*A + diag(counts) with sparse
     A — the counterpart of :func:`blocked_mme_gibbs` for pedigree-sized
     epsilon systems (reference: src/solver.cpp:131-140 iterates arma::sp_mat
@@ -582,10 +585,10 @@ def blocked_mme_gibbs_sparse(sp: EpslSparse, counts, scale, x, b, ve, z,
     draws; the residual update scatters this block's O(nnz/block) COO
     triplets.  Storage and work are O(nnz) for ANY sparsity pattern.
 
-    With use_pallas, the T in-block sequential draws run in the fused VMEM
+    With use_pallas, the T in-block sequential draws run in the Pallas
     kernel (`ops.blockgibbs.mme_block_draws`) instead of a per-site XLA scan
-    (~7 us/site of dispatch overhead — 554 ms/iter at qe=80k); the two paths
-    draw identical chains up to f32 association order.
+    of T loop trips; the two paths draw identical chains up to f32
+    association order.
 
     Returns (x_new, A @ x_new) — the matvec feeds the veps quadratic form.
     """
@@ -616,7 +619,7 @@ def blocked_mme_gibbs_sparse(sp: EpslSparse, counts, scale, x, b, ve, z,
 
         if kernel:
             dx_b = blockgibbs.mme_block_draws(
-                Wb, r_local, invd_b, noise_b, interpret=interpret).astype(dt)
+                Wb, r_local, invd_b, noise_b).astype(dt)
             xnew_b = xb + dx_b
         else:
             db = jnp.diagonal(Wb)
@@ -674,49 +677,17 @@ def ind_shard_count(mesh) -> int:
     return int(mesh.shape.get("ind", 1))
 
 
-def hybrid_draws_supported(spec: GibbsSpec, dt) -> bool:
-    """Whether the per-block Pallas draw kernel (`_s_block_draws` over the
-    genotype Gram) can replace the per-SNP XLA scan: the sharding-composable
-    sweep used under ind-sharded meshes (the two X matmuls stay XLA ops that
-    GSPMD/shard_map partition; only the tiny (B, K) draw kernel is Pallas,
-    replicated on every shard)."""
-    return (
-        dt == jnp.float32
-        and not spec.reject_guard
-        and spec.block % 8 == 0
-    )
-
-
-def _select_sweep_mc(spec: GibbsSpec, n: int, K: int, dt, itemsize: int,
-                     interp: bool):
-    """Pick the fused K-chain sweep kernel for this configuration, or None.
-    Preference: transposed (X block VMEM-resident, grid-pipelined DMA) >
-    int8-resident transposed (X in storage dtype in VMEM, chunked casts —
-    4x the n-reach, X crosses HBM once per iteration) > chunked-n transposed
-    (X streamed from HBM; manual DMA is not modelled by the CPU interpreter)
-    > masked-lane multi-chain."""
+def _kernel_draws(spec: GibbsSpec, dt) -> bool:
+    """Whether the sweep runs its per-block draws in the Pallas kernel
+    (`ops/blockgibbs.block_draws`) rather than the per-SNP XLA scan."""
     from ..ops import blockgibbs
 
-    if not spec.use_pallas:
-        return None
-    candidates = [
-        (blockgibbs.sweep_mc_t, blockgibbs.supports_mc_t),
-        (blockgibbs.sweep_mc_ti, blockgibbs.supports_mc_ti),
-    ]
-    if not interp:
-        candidates.append((blockgibbs.sweep_mc_tc, blockgibbs.supports_mc_tc))
-    candidates.append((blockgibbs.sweep_mc, blockgibbs.supports_mc))
-    for fn, ok in candidates:
-        if ok(spec, n, K, dt, geno_itemsize=itemsize):
-            return partial(fn, interpret=interp)
-    return None
+    return spec.use_pallas and blockgibbs.draws_supported(spec, dt)
 
 
 def _run_sweep_k1(fn, spec, consts, X_blocks, W_blocks, xpx, vx, vei, g, rnd,
                   vargL_in, yadj, u):
-    """Run a K-chain sweep kernel as a single chain (add/strip the K=1 axis).
-    The transposed engines at K=1 use unrolled zero-tail draws: ~4x fewer
-    sequential-latency cycles per SNP than the masked-lane loop."""
+    """Run a K-chain sweep as a single chain (add/strip the K=1 axis)."""
     consts_b = jax.tree_util.tree_map(lambda x: jnp.asarray(x)[None], consts)
     out = fn(
         spec, consts_b, X_blocks, W_blocks, xpx, vx,
@@ -730,82 +701,34 @@ def one_iteration(spec: GibbsSpec, data: GibbsData, base_key, state: ChainState,
                   mesh=None):
     """One full MCMC iteration = pre-sweep effects + SNP sweep + global
     updates.  Split into three phases so multi-chain execution can vmap the
-    cheap phases and hand the sweep to a batched kernel."""
+    cheap phases and hand the sweep to the batched draws kernel."""
     key = jax.random.fold_in(base_key, state.it)
     pre = _pre_sweep(spec, data, key, state)
+    args = (spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
+            data.vx, pre["vei"], state.g, pre["rnd"], pre["vargL_in"],
+            pre["yadj"], pre["u"])
 
-    from ..ops import blockgibbs
-
-    dt = data.y.dtype
-    itemsize = data.X_blocks.dtype.itemsize
-    interp = jax.default_backend() == "cpu"  # interpreter off-TPU (tests)
     if snp_shard_count(spec.nblocks, mesh) > 1:
         sweep_out = _sweep_snp_sharded(
             spec, data, pre["consts"], pre["rnd"], pre["vei"], state.g,
             pre["vargL_in"], pre["yadj"], pre["u"], mesh,
         )
-        return _post_sweep(spec, data, key, state, pre, sweep_out)
-
-    if (spec.shard_schedule == "concurrent" and spec.emulate_shards > 1
+    elif (spec.shard_schedule == "concurrent" and spec.emulate_shards > 1
             and ind_shard_count(mesh) <= 1):
         # single-device emulation of the concurrent-shard schedule (same
-        # Markov kernel as the S-chip distributed run)
-        sweep_out = _run_sweep_k1(
-            partial(_sweep_concurrent_emu_mc, interpret=interp),
-            spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
-            data.vx, pre["vei"], state.g, pre["rnd"], pre["vargL_in"],
-            pre["yadj"], pre["u"],
-        )
-        return _post_sweep(spec, data, key, state, pre, sweep_out)
-    if spec.shard_schedule == "pipeline" and spec.emulate_shards > 1:
+        # Markov kernel as the S-device distributed run)
+        sweep_out = _run_sweep_k1(_sweep_concurrent_emu_mc, *args)
+    elif spec.shard_schedule == "pipeline" and spec.emulate_shards > 1:
         raise ValueError(
             "shard_schedule='pipeline' needs a multi-chain batch "
             "(run_chains with nchains a multiple of the shard count); a "
             "single chain has no chain groups to rotate")
-
-    if ind_shard_count(mesh) > 1:
-        # An ind-sharded mesh must NOT reach the monolithic Pallas kernels:
-        # pallas_call has no GSPMD partitioning rule, so XLA would gather the
-        # full genotype to every device.  Route through the shard_map-wrapped
-        # per-block hybrid (kernel-grade draws, psum'd matmuls) or, when the
-        # configuration is unsupported, the plain XLA sweep (GSPMD-safe).
-        if spec.use_pallas and hybrid_draws_supported(spec, dt):
-            sweep_out = _run_sweep_k1(
-                partial(_sweep_ind_hybrid_mc, mesh=mesh, interpret=interp),
-                spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
-                data.vx, pre["vei"], state.g, pre["rnd"], pre["vargL_in"],
-                pre["yadj"], pre["u"],
-            )
-        else:
-            sweep_out = _sweep_xla(
-                spec, data, pre["consts"], pre["rnd"], pre["vei"], state.g,
-                pre["vargL_in"], pre["yadj"], pre["u"],
-            )
-        return _post_sweep(spec, data, key, state, pre, sweep_out)
-
-    mc_fn = _select_sweep_mc(spec, spec.n, 1, dt, itemsize, interp)
-    if mc_fn is not None:
-        sweep_out = _run_sweep_k1(
-            mc_fn, spec, pre["consts"], data.X_blocks, data.W_blocks,
-            data.xpx, data.vx, pre["vei"], state.g, pre["rnd"],
-            pre["vargL_in"], pre["yadj"], pre["u"],
-        )
-    elif spec.use_pallas and blockgibbs.supports(spec, spec.n, dt, geno_itemsize=itemsize):
-        sweep_out = blockgibbs.sweep(
-            spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
-            data.vx, pre["vei"], state.g, *pre["rnd"], pre["vargL_in"],
-            pre["yadj"], pre["u"], interpret=interp,
-        )
-    elif spec.use_pallas and not interp and blockgibbs.supports_chunked(
-        spec, spec.n, dt, geno_itemsize=itemsize
-    ):
-        # large-n path: X stays in HBM, chunks streamed with double-buffered
-        # DMA (manual DMA is not modelled by the CPU interpreter)
-        sweep_out = blockgibbs.sweep_chunked(
-            spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
-            data.vx, pre["vei"], state.g, *pre["rnd"], pre["vargL_in"],
-            pre["yadj"], pre["u"],
-        )
+    elif _kernel_draws(spec, data.y.dtype):
+        # pallas_call has no GSPMD partitioning rule: under an ind-sharded
+        # mesh the sweep runs inside shard_map (psum'd r0, replicated draws)
+        ind_mesh = mesh if ind_shard_count(mesh) > 1 else None
+        sweep_out = _run_sweep_k1(partial(_sweep_kernel_mc, mesh=ind_mesh),
+                                  *args)
     else:
         sweep_out = _sweep_xla(
             spec, data, pre["consts"], pre["rnd"], pre["vei"], state.g,
@@ -929,7 +852,6 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, key, state: ChainState):
             new_e, Ae = blocked_mme_gibbs_sparse(
                 data.epsl_sp, data.epsl_counts, scale, epsl_estR, rhs_e, ve, ze,
                 use_pallas=spec.use_pallas,
-                interpret=jax.default_backend() == "cpu",
             )
             quad = jnp.dot(new_e, Ae, precision=HIGHEST)
         else:
@@ -1060,95 +982,60 @@ def _sweep_xla(spec: GibbsSpec, data: GibbsData, consts, rnd, vei, g, vargL_in,
     )
 
 
-def _sweep_ind_hybrid_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx,
-                         vx, vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b,
-                         yadj_b, u_vec_b, *, mesh, interpret=False):
-    """K-chain sweep under an ind-sharded mesh at kernel speed.
+def _sweep_kernel_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx,
+                     vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b,
+                     u_vec_b, *, mesh=None):
+    """K-chain sweep with the per-block draws in the Pallas kernel: an XLA
+    scan over SNP blocks runs r0 = X_b' yadj, the (B, K) draws kernel and
+    the residual product (`_sweep_local_blocks`).  Under an ind-sharded
+    `mesh` the body runs inside shard_map — pallas_call has no GSPMD
+    partitioning rule, so XLA would otherwise gather the full genotype onto
+    every device; the r0 contraction is psum'd over `ind` and the draws run
+    replicated (bit-identical across replicas).  Reference hot loop:
+    src/Bayes.cpp:586-816."""
+    nblocks, _, B = X_blocks.shape
+    K = yadj_b.shape[0]
+    rs = lambda x: x.reshape(nblocks, B)
+    rsk = lambda x: x.reshape(K, nblocks, B, *x.shape[2:])
+    shared = (rs(xpx), rs(vx), rs(jnp.arange(nblocks * B)))
+    chains = tuple(rsk(a) for a in (vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b))
 
-    The monolithic Pallas sweeps cannot run under an ind-sharded mesh —
-    pallas_call has no GSPMD partitioning rule, so XLA would gather the full
-    genotype onto every device.  This hybrid keeps the two X matmuls as plain
-    XLA ops inside shard_map (shard-local contractions + one psum over `ind`
-    per block for r0 — the only cross-shard quantity besides the delta, which
-    stays shard-local) and runs the B sequential draws in the tiny per-block
-    Pallas kernel on (B, K) tiles, replicated on every shard (deterministic,
-    bit-identical across replicas).  Matches the XLA scan chain exactly.
-    Reference hot loop: src/Bayes.cpp:586-816.
-    """
+    def body(X, W, shared, chains, yadj, u, consts):
+        ya2, u2, vi, vR, g_new, track, vargL_new = _sweep_local_blocks(
+            spec, consts, X, W, *shared, *chains, yadj, u,
+            use_kernel=True, has_ind=mesh is not None)
+        return g_new, track, vargL_new, ya2, u2, vi, vR
+
+    args = (X_blocks, W_blocks, shared, chains, yadj_b, u_vec_b, consts_b)
+    if mesh is None:
+        return body(*args)
+
     from jax import shard_map
     from jax.sharding import PartitionSpec as PS
 
-    from ..ops import blockgibbs
-
-    nblocks, n, B = X_blocks.shape
-    m_pad = nblocks * B
-    K = yadj_b.shape[0]
-    F32 = jnp.float32
-
-    def pack_one(consts_k, vei, g, z, uu, chi, vargL):
-        c = dict(consts_k)
-        c["vargL_vec"] = vargL
-        return blockgibbs._pack_rows(spec, c, xpx, vx, vei, g, z, uu, chi)
-
-    P = jax.vmap(pack_one)(consts_b, vei_b, g_b, z_b, u_b, chi_b, vargL_b)
-    R = P.shape[1]
-    P_blocks = blockgibbs.to_block_layout(P, nblocks, B)  # (nb, B, R, K)
-    logpi_row = consts_b["logpi"][:, 0].astype(F32).reshape(1, K)
-
-    def body(X, W, P_bl, logpi, yadj, u):
-        def block_body(carry, xs):
-            ya, uu = carry
-            Xb, Wb, P_b = xs
-            Xl = Xb.astype(F32)
-            r0 = jax.lax.psum(
-                jax.lax.dot_general(
-                    Xl, ya, (((0,), (1,)), ((), ())),
-                    preferred_element_type=F32, precision=HIGHEST,
-                ),
-                "ind",
-            )  # (B, K)
-            dg, track_b = blockgibbs._s_block_draws(
-                spec, logpi, P_b, Wb, r0, interpret=interpret
-            )
-            delta = jax.lax.dot_general(
-                dg, Xl, (((0,), (1,)), ((), ())), preferred_element_type=F32,
-                precision=HIGHEST,
-            )  # (K, n_loc)
-            return (ya + delta, uu - delta), (dg, track_b)
-
-        (ya, uu), (dgs, tracks) = jax.lax.scan(block_body, (yadj, u), (X, W, P_bl))
-        return ya, uu, dgs, tracks
-
-    yadj_o, u_o, dgs, tracks = shard_map(
+    rep = lambda tree: jax.tree_util.tree_map(lambda _: PS(), tree)
+    return shard_map(
         body, mesh=mesh,
-        in_specs=(PS(None, "ind", None), PS(None, None, None),
-                  PS(None, None, None, None), PS(None, None),
-                  PS(None, "ind"), PS(None, "ind")),
-        out_specs=(PS(None, "ind"), PS(None, "ind"), PS(), PS()),
+        in_specs=(PS(None, "ind", None), PS(), rep(shared), rep(chains),
+                  PS(None, "ind"), PS(None, "ind"), rep(consts_b)),
+        out_specs=(PS(), PS(), PS(), PS(None, "ind"), PS(None, "ind"), PS(),
+                   PS()),
         check_vma=False,
-    )(X_blocks, W_blocks.astype(F32), P_blocks, logpi_row,
-      yadj_b.astype(F32), u_vec_b.astype(F32))
-
-    dg = dgs.transpose(2, 0, 1).reshape(K, m_pad)
-    track = tracks.transpose(2, 0, 1).reshape(K, m_pad).astype(jnp.int32)
-    g_new = g_b.astype(F32) - dg
-    return blockgibbs._phase_c_mc(spec, consts_b, vx, vei_b, g_new, track,
-                                  u_b, z2_b, vargL_b, yadj_o, u_o)
+    )(*args)
 
 
 def _sweep_local_blocks(spec: GibbsSpec, consts_b, Xg, Wg, xpx_g, vx_g, gidx_g,
                         vei_g, g_g, z_g, u_g, chi_g, z2_g, vargL_g, yadj, u, *,
-                        mc_fn, use_hybrid, has_ind, interp):
+                        use_kernel, has_ind):
     """Sweep the given SNP blocks for K chains against (yadj, u) — the
-    device-local unit shared by the turn schedule, the concurrent schedule
-    and the single-device concurrent emulation.
+    device-local unit shared by the unsharded sweep, the turn, concurrent
+    and pipeline schedules and their single-device emulations.
 
     Blocked inputs: Xg (nbg, n_loc, B), Wg (nbg, B, B), per-SNP shared
     xpx/vx/gidx (nbg, B), per-chain vei/g/z/u/chi/z2/vargL
-    (K, nbg, B[, n_fold]); yadj/u (K, n_loc).  Engine selection is static:
-    `mc_fn` (fused multi-chain Pallas sweep), the per-block hybrid (psum'd
-    r0 over `ind` + the (B, K) Pallas draw kernel), or the per-SNP XLA scan
-    vmapped over chains.  Returns
+    (K, nbg, B[, n_fold]); yadj/u (K, n_loc).  `use_kernel` runs the draws
+    in the (B, K) Pallas kernel (r0 psum'd over `ind` when `has_ind`);
+    otherwise the per-SNP XLA scan runs vmapped over chains.  Returns
     (ya2, u2, vargi (K,), vargR (K,), g_new (K, nbg*B), track, vargL_new).
     """
     from ..ops import blockgibbs
@@ -1159,20 +1046,12 @@ def _sweep_local_blocks(spec: GibbsSpec, consts_b, Xg, Wg, xpx_g, vx_g, gidx_g,
     K = yadj.shape[0]
     flat = lambda x: x.reshape(-1, *x.shape[2:])
     flatk = lambda x: x.reshape(x.shape[0], -1, *x.shape[3:])
-    xpx_l, vx_l, gidx_l = flat(xpx_g), flat(vx_g), flat(gidx_g)
+    xpx_l, vx_l = flat(xpx_g), flat(vx_g)
     vei_l, g_l, z_l, u_l, chi_l, z2_l, vargL_l = (
         flatk(a) for a in (vei_g, g_g, z_g, u_g, chi_g, z2_g, vargL_g)
     )
 
-    if mc_fn is not None:
-        out = mc_fn(
-            spec, consts_b, Xg, Wg, xpx_l, vx_l, vei_l, g_l,
-            z_l, u_l, chi_l, z2_l, vargL_l, yadj, u,
-        )
-        g_new, track, vargL_new, ya2, u2, vargi, vargR = out
-        return ya2, u2, vargi, vargR, g_new, track, vargL_new
-
-    if use_hybrid:
+    if use_kernel:
         F = jnp.float32
 
         def pack_one(consts_k, vei, gg, z, uu, chi, vargL):
@@ -1182,7 +1061,6 @@ def _sweep_local_blocks(spec: GibbsSpec, consts_b, Xg, Wg, xpx_g, vx_g, gidx_g,
 
         P_loc = jax.vmap(pack_one)(consts_b, vei_l, g_l, z_l, u_l, chi_l, vargL_l)
         P_blocks = blockgibbs.to_block_layout(P_loc, nbg, B)
-        logpi_row = consts_b["logpi"][:, 0].astype(F).reshape(1, K)
 
         def block_body(carry, xs):
             ya, uu = carry
@@ -1194,9 +1072,7 @@ def _sweep_local_blocks(spec: GibbsSpec, consts_b, Xg, Wg, xpx_g, vx_g, gidx_g,
             )  # (B, K)
             if has_ind:
                 r0 = jax.lax.psum(r0, "ind")
-            dg, track_b = blockgibbs._s_block_draws(
-                spec, logpi_row, P_b, Wb.astype(F), r0, interpret=interp,
-            )
+            dg, track_b = blockgibbs.block_draws(spec, P_b, Wb, r0)
             delta = jax.lax.dot_general(
                 dg, Xl, (((0,), (1,)), ((), ())),
                 preferred_element_type=F, precision=HIGHEST,
@@ -1254,16 +1130,13 @@ def _sweep_local_blocks(spec: GibbsSpec, consts_b, Xg, Wg, xpx_g, vx_g, gidx_g,
 
 def _sweep_concurrent_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks,
                              xpx, vx, vei_b, g_b, z_b, u_b, chi_b, z2_b,
-                             vargL_b, yadj_b, u_vec_b, *, interpret=False):
+                             vargL_b, yadj_b, u_vec_b):
     """Single-device emulation of the concurrent-shard schedule with
     S = spec.emulate_shards virtual shards and spec.merge_rounds merge
     rounds — the SAME Markov kernel as the distributed concurrent run
     (each virtual shard's group sweep starts from the round-start residual;
     the deltas are summed, exactly what the psum merge computes), executed
-    sequentially on one chip.  Used for posterior-agreement studies and to
-    measure the per-round cost that an S-chip slice would pay per shard."""
-    from ..ops import blockgibbs
-
+    sequentially on one device.  Used for posterior-agreement studies."""
     dt = yadj_b.dtype
     nb, n, B = X_blocks.shape
     m_pad = nb * B
@@ -1276,14 +1149,7 @@ def _sweep_concurrent_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks,
         )
     nbg = nb // (S * Rm)
     mg = nbg * B
-    itemsize = X_blocks.dtype.itemsize
-    mc_fn = _select_sweep_mc(spec, n, K, dt, itemsize, interpret)
-    # zero-copy group sweeps: the transposed kernels read their block range
-    # straight from the full HBM buffer (a lax.scan over shard slices would
-    # copy the whole genotype once per iteration — 3.2 GB at the 50k anchor)
-    zero_copy = mc_fn is not None and getattr(mc_fn, "func", None) in (
-        blockgibbs.sweep_mc_t, blockgibbs.sweep_mc_ti, blockgibbs.sweep_mc_tc,
-    )
+    use_kernel = _kernel_draws(spec, dt)
     gidx = jnp.arange(m_pad)
 
     # global block index = s*(Rm*nbg) + r*nbg + t: shard-major, contiguous
@@ -1300,27 +1166,16 @@ def _sweep_concurrent_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks,
             gi = s * Rm + r
             b0 = gi * nbg
             sl = slice(b0 * B, b0 * B + mg)
-            if zero_copy:
-                out = mc_fn(
-                    spec, consts_b, X_blocks, W_blocks, xpx[sl], vx[sl],
-                    vei_b[:, sl], g_b[:, sl], z_b[:, sl], u_b[:, sl],
-                    chi_b[:, sl], z2_b[:, sl], vargL_b[:, sl], ya, uu,
-                    block_range=(b0, nbg),
-                )
-                gn, tr, vl, ya2, u2, vi, vR = out
-            else:
-                rs = lambda v: v[sl].reshape(nbg, B)
-                rsk = lambda v: v[:, sl].reshape(K, nbg, B, *v.shape[2:])
-                ya2, u2, vi, vR, gn, tr, vl = _sweep_local_blocks(
-                    spec, consts_b,
-                    jax.lax.slice_in_dim(X_blocks, b0, b0 + nbg),
-                    jax.lax.slice_in_dim(W_blocks, b0, b0 + nbg),
-                    rs(xpx), rs(vx), rs(gidx), rsk(vei_b), rsk(g_b),
-                    rsk(z_b), rsk(u_b), rsk(chi_b), rsk(z2_b), rsk(vargL_b),
-                    ya, uu,
-                    mc_fn=mc_fn, use_hybrid=False, has_ind=False,
-                    interp=interpret,
-                )
+            rs = lambda v: v[sl].reshape(nbg, B)
+            rsk = lambda v: v[:, sl].reshape(K, nbg, B, *v.shape[2:])
+            ya2, u2, vi, vR, gn, tr, vl = _sweep_local_blocks(
+                spec, consts_b,
+                jax.lax.slice_in_dim(X_blocks, b0, b0 + nbg),
+                jax.lax.slice_in_dim(W_blocks, b0, b0 + nbg),
+                rs(xpx), rs(vx), rs(gidx), rsk(vei_b), rsk(g_b),
+                rsk(z_b), rsk(u_b), rsk(chi_b), rsk(z2_b), rsk(vargL_b),
+                ya, uu, use_kernel=use_kernel, has_ind=False,
+            )
             dya = dya + (ya2 - ya)
             du = du + (u2 - uu)
             vi_t = vi_t + vi.astype(dt)
@@ -1346,7 +1201,7 @@ def _sweep_snp_sharded(spec: GibbsSpec, data: GibbsData, consts, rnd, vei, g,
 
 def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks,
                            xpx, vx, vei_b, g_b, z_b, u_b, chi_b, z2_b,
-                           vargL_b, yadj_b, u_vec_b, *, interpret=False):
+                           vargL_b, yadj_b, u_vec_b):
     """Single-device emulation of the ring-pipelined schedule: chain group c
     (batch rows [c*Kg, (c+1)*Kg)) sweeps the S shard block-ranges in rotated
     order c, c+1, ..., c+S-1 with the residual threaded sequentially — per
@@ -1354,8 +1209,6 @@ def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks,
     so the time-interleaving of the distributed run is irrelevant).  Group 0
     runs the canonical block order: its chains are bit-identical to the
     plain single-device sweep."""
-    from ..ops import blockgibbs
-
     dt = yadj_b.dtype
     nb, n, B = X_blocks.shape
     m_pad = nb * B
@@ -1372,11 +1225,7 @@ def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks,
     Kg = K // S
     nbg = nb // S
     mg = nbg * B
-    itemsize = X_blocks.dtype.itemsize
-    mc_fn = _select_sweep_mc(spec, n, Kg, dt, itemsize, interpret)
-    zero_copy = mc_fn is not None and getattr(mc_fn, "func", None) in (
-        blockgibbs.sweep_mc_t, blockgibbs.sweep_mc_ti, blockgibbs.sweep_mc_tc,
-    )
+    use_kernel = _kernel_draws(spec, dt)
     gidx = jnp.arange(m_pad)
 
     ya_rows, u_rows, vi_rows, vR_rows, g_rows, tr_rows, vl_rows = (
@@ -1393,28 +1242,16 @@ def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks,
             sblk = (c + t) % S
             b0 = sblk * nbg
             sl = slice(b0 * B, b0 * B + mg)
-            if zero_copy:
-                out = mc_fn(
-                    spec, consts_c, X_blocks, W_blocks, xpx[sl], vx[sl],
-                    vei_b[rsel][:, sl], g_b[rsel][:, sl], z_b[rsel][:, sl],
-                    u_b[rsel][:, sl], chi_b[rsel][:, sl], z2_b[rsel][:, sl],
-                    vargL_b[rsel][:, sl], ya, uu, block_range=(b0, nbg),
-                )
-                gn, tr, vl, ya, uu, vi_s, vR_s = out
-            else:
-                rs = lambda v: v[sl].reshape(nbg, B)
-                rsk = lambda v: v[rsel][:, sl].reshape(
-                    Kg, nbg, B, *v.shape[2:])
-                ya, uu, vi_s, vR_s, gn, tr, vl = _sweep_local_blocks(
-                    spec, consts_c,
-                    jax.lax.slice_in_dim(X_blocks, b0, b0 + nbg),
-                    jax.lax.slice_in_dim(W_blocks, b0, b0 + nbg),
-                    rs(xpx), rs(vx), rs(gidx), rsk(vei_b), rsk(g_b),
-                    rsk(z_b), rsk(u_b), rsk(chi_b), rsk(z2_b), rsk(vargL_b),
-                    ya, uu,
-                    mc_fn=mc_fn, use_hybrid=False, has_ind=False,
-                    interp=interpret,
-                )
+            rs = lambda v: v[sl].reshape(nbg, B)
+            rsk = lambda v: v[rsel][:, sl].reshape(Kg, nbg, B, *v.shape[2:])
+            ya, uu, vi_s, vR_s, gn, tr, vl = _sweep_local_blocks(
+                spec, consts_c,
+                jax.lax.slice_in_dim(X_blocks, b0, b0 + nbg),
+                jax.lax.slice_in_dim(W_blocks, b0, b0 + nbg),
+                rs(xpx), rs(vx), rs(gidx), rsk(vei_b), rsk(g_b),
+                rsk(z_b), rsk(u_b), rsk(chi_b), rsk(z2_b), rsk(vargL_b),
+                ya, uu, use_kernel=use_kernel, has_ind=False,
+            )
             vi = vi + vi_s.astype(dt)
             vR = vR + vR_s.astype(dt)
             pieces[sblk] = (gn.astype(dt), tr.astype(jnp.int32),
@@ -1438,27 +1275,20 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b,
     on one process; this composes m-MP with multi-chain batching).
 
     Each device owns a contiguous run of SNP blocks — the X/W block shards
-    live only in its HBM, which is what makes 50k x 500k (25 GB int8) fit an
-    8-chip slice.  The single-device block ORDER is preserved exactly by
-    sweeping shards in turn: shard s runs its local block scan for ALL K
-    chains while the others skip (lax.cond), then the (K, n) yadj/u deltas
-    are merged into every replica with one psum over the `snp` mesh axis
-    (the residual-correction merge over ICI).  Same Markov kernel per chain
-    as the single-device sweep; the n axis may be sharded simultaneously
-    (psum over `ind` inside the turn).
+    live only in its memory.  The single-device block ORDER is preserved
+    exactly by sweeping shards in turn: shard s runs its local block scan
+    for ALL K chains while the others skip (lax.cond), then the (K, n)
+    yadj/u deltas are merged into every replica with one psum over the `snp`
+    mesh axis.  Same Markov kernel per chain as the single-device sweep; the
+    n axis may be sharded simultaneously (psum over `ind` inside the turn).
 
-    The shard-local sweep runs at kernel speed: pure m-MP meshes call the
-    fused multi-chain Pallas sweeps on the local X/W blocks (chains on
-    lanes; pallas inside shard_map sees shard-local shapes — no
-    partitioning-rule hazard); 2-D meshes (m-MP x n-DP) use the per-block
-    hybrid (psum'd r0 + the (B, K) Pallas draw kernel).  Unsupported
-    configurations (f64, rejection guard) fall back to the per-SNP XLA scan
-    vmapped over chains.
+    The shard-local sweep is `_sweep_local_blocks`: the per-block draws
+    kernel inside shard_map (which sees shard-local shapes — no
+    partitioning-rule hazard), or the per-SNP XLA scan vmapped over chains
+    for configurations the kernel does not cover (f64).
     """
     from jax import shard_map
     from jax.sharding import PartitionSpec as PS
-
-    from ..ops import blockgibbs
 
     dt = yadj_b.dtype
     B = spec.block
@@ -1466,8 +1296,6 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b,
     K = yadj_b.shape[0]
     has_ind = int(mesh.shape.get("ind", 1)) > 1
     S = int(mesh.shape["snp"])
-    interp = jax.default_backend() == "cpu"
-    itemsize = data.X_blocks.dtype.itemsize
     z_b, u_b, chi_b, z2_b = rnd_b
     # shared per-SNP rows: (m_pad,) -> (nb, B); per-chain rows:
     # (K, m_pad[, nf]) -> (K, nb, B[, nf]) so dim 1 shards over `snp`
@@ -1491,13 +1319,7 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b,
                 f"groups of nchains/S)"
             )
     Kg = K // S if pipeline else K
-
-    # static selection of the shard-local sweep engine (pipeline sweeps one
-    # chain GROUP per turn, so the kernel is selected for Kg chains)
-    mc_fn = (None if has_ind
-             else _select_sweep_mc(spec, spec.n, Kg, dt, itemsize, interp))
-    use_hybrid = (mc_fn is None and spec.use_pallas
-                  and hybrid_draws_supported(spec, dt))
+    use_kernel = _kernel_draws(spec, dt)
 
     def body(X, W, pvst, pvkt, yadj, u, consts):
         xpx_b, vx_b, gidxb = pvst
@@ -1506,7 +1328,7 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b,
         flatk = lambda x: x.reshape(x.shape[0], -1, *x.shape[3:])
         sweep = partial(
             _sweep_local_blocks, spec, consts,
-            mc_fn=mc_fn, use_hybrid=use_hybrid, has_ind=has_ind, interp=interp,
+            use_kernel=use_kernel, has_ind=has_ind,
         )
 
         if spec.shard_schedule == "concurrent":
@@ -1584,8 +1406,7 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b,
                                                   consts)
                 sweep_c = partial(
                     _sweep_local_blocks, spec, consts_c,
-                    mc_fn=mc_fn, use_hybrid=use_hybrid, has_ind=False,
-                    interp=interp,
+                    use_kernel=use_kernel, has_ind=False,
                 )
                 ya2, u2, vi, vR, gn, tr, vl = sweep_c(
                     X, W, xpx_b, vx_b, gidxb, *pvk_c, ya_loc, u_loc)
@@ -1871,30 +1692,24 @@ def pad_to_block(m: int, block: int) -> int:
 def prepare_gibbs_data(
     y, M, *, C=None, r_codes=(), r_nlevels=(), fold=None, windindx=None, nw=0,
     K=None, Kval=None, epsl_yJ=None, epsl_A=None, epsl_codes=None, qe=0,
-    block=64, dtype=jnp.float32, geno_dtype=None, pad_n="auto",
+    block=64, dtype=jnp.float32, geno_dtype=None, pad_n=False,
     nblocks_multiple=1,
 ):
     """Build the device-resident GibbsData (block layout, Gram matrices, stats).
 
-    geno_dtype="int8" keeps the genotype HBM-resident as int8 (4x capacity
-    and sweep bandwidth vs f32); the Gram matrices are built with exact int32
-    MXU accumulation (entries <= 4n < 2^24 stay exact in f32) and the kernels
-    cast blocks to f32 in VMEM.
+    geno_dtype="int8" keeps the genotype device-resident as int8 (4x
+    capacity and sweep bandwidth vs f32); the Gram matrices are built with
+    exact int32 accumulation (entries <= 4n < 2^24 stay exact in f32) and
+    the sweep casts each block to f32.
 
-    pad_n: "auto" zero-pads the individual axis up to a multiple of 512 for
-    large odd-sized cohorts (n > 4096, no BSLMM/epsilon term) — the chunked
-    Pallas sweeps slice residual rows at 128-aligned lane offsets, so e.g.
-    n=50,000 needs padding to run at kernel speed.  Zero rows are exact
-    no-ops in every dot product; callers must put the PADDED n in
-    GibbsSpec.n (array sizes) and the real count in GibbsSpec.n_real (all
-    statistics use n_real).  Pass pad_n=False to disable.
+    pad_n=True zero-pads the individual axis up to a multiple of 512.  Zero
+    rows are exact no-ops in every dot product; callers must put the PADDED
+    n in GibbsSpec.n (array sizes) and the real count in GibbsSpec.n_real
+    (all statistics use n_real).
     """
     y = jnp.asarray(y, dtype)
     n = int(y.shape[0])
     n_real = n
-    if pad_n == "auto":
-        pad_n = (K is None and epsl_yJ is None and epsl_A is None
-                 and n > 4096 and n % 512 != 0)
     if pad_n:
         if K is not None or epsl_A is not None or epsl_yJ is not None:
             raise ValueError("pad_n is not supported with BSLMM/epsilon terms")
@@ -1947,10 +1762,11 @@ def prepare_gibbs_data(
             Mi[:n_real, :m] = M_np.astype(np.int8)
         X_blocks = jnp.asarray(Mi.reshape(n, nblocks, block).transpose(1, 0, 2))
 
-        # exact integer Gram on the MXU, cast to f32 (exact below 2^24).
+        # exact integer Gram (int8 x int8 -> int32), cast to f32 (exact
+        # below 2^24).
         # Single-argument jit so both dot operands alias ONE device buffer —
         # passing X twice at the primitive level counts the (possibly tens of
-        # GB) genotype twice against HBM.
+        # GB) genotype twice against device memory.
         @jax.jit
         def _block_grams_and_sums(Xb):
             W = jax.lax.dot_general(
@@ -2314,7 +2130,7 @@ def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init, seed=66
 
     samples arrays have leading axis n_records; alpha is sliced to the real m.
     With `mesh`, the individual axis is sharded across devices (exact chain,
-    psum-merged contractions over ICI).  With `checkpoint_path` or `progress`,
+    psum-merged contractions).  With `checkpoint_path` or `progress`,
     execution is chunked (`chunk_records` records per device call): state +
     collected samples are persisted after each chunk and a killed chain
     resumes bit-identically (randomness is keyed off the iteration counter).
@@ -2381,55 +2197,33 @@ def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init, seed=66
 
 def one_iteration_batch(spec: GibbsSpec, data: GibbsData, chain_keys, states,
                         mesh=None):
-    """One iteration of K chains.  The cheap phases vmap; the SNP sweep uses
-    the dedicated multi-chain Pallas kernel when supported (the matvecs get
-    M=K on the MXU and the draws run on (K,1) sublane vectors), else the
-    vmapped XLA sweep.  Under an ind-sharded mesh the monolithic kernels are
-    skipped (no GSPMD rule -> full-genotype gather) in favour of the
-    shard_map-wrapped per-block hybrid; under an SNP-sharded mesh the sweep
-    runs the turn-based shard schedule with all K chains per turn
-    (_sweep_snp_sharded_mc) — m-MP composes with multi-chain batching."""
-    dt = data.y.dtype
+    """One iteration of K chains.  The cheap phases vmap; the SNP sweep runs
+    the per-block draws kernel for all K chains at once (`_sweep_kernel_mc`,
+    inside shard_map under an ind-sharded mesh), else the vmapped XLA sweep.
+    Under an SNP-sharded mesh the sweep runs the turn-based shard schedule
+    with all K chains per turn (_sweep_snp_sharded_mc) — m-MP composes with
+    multi-chain batching."""
     keys = jax.vmap(lambda k, it: jax.random.fold_in(k, it))(chain_keys, states.it)
     pre = jax.vmap(lambda k, s: _pre_sweep(spec, data, k, s))(keys, states)
-    K = int(states.it.shape[0])
+    z_b, u_b, chi_b, z2_b = pre["rnd"]
+    args = (spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
+            data.vx, pre["vei"], states.g, z_b, u_b, chi_b, z2_b,
+            pre["vargL_in"], pre["yadj"], pre["u"])
+    ind_sharded = ind_shard_count(mesh) > 1
 
-    itemsize = data.X_blocks.dtype.itemsize
-    interp = jax.default_backend() == "cpu"
     if snp_shard_count(spec.nblocks, mesh) > 1:
-        # m-MP x multi-chain: turn-based shard schedule with all K chains
-        # swept per turn (fused multi-chain kernels shard-locally)
         sweep_out = _sweep_snp_sharded_mc(
             spec, data, pre["consts"], pre["rnd"], pre["vei"], states.g,
             pre["vargL_in"], pre["yadj"], pre["u"], mesh,
         )
-        return _post_sweep_batch(spec, data, keys, states, pre, sweep_out)
-    ind_sharded = ind_shard_count(mesh) > 1
-    if (spec.shard_schedule in ("concurrent", "pipeline")
+    elif (spec.shard_schedule in ("concurrent", "pipeline")
             and spec.emulate_shards > 1 and not ind_sharded):
-        z_b, u_b, chi_b, z2_b = pre["rnd"]
         emu = (_sweep_concurrent_emu_mc
                if spec.shard_schedule == "concurrent"
                else _sweep_pipeline_emu_mc)
-        sweep_out = emu(
-            spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
-            data.vx, pre["vei"], states.g, z_b, u_b, chi_b, z2_b,
-            pre["vargL_in"], pre["yadj"], pre["u"], interpret=interp,
-        )
-        return _post_sweep_batch(spec, data, keys, states, pre, sweep_out)
-    sweep_fn = None
-    if ind_sharded:
-        if spec.use_pallas and hybrid_draws_supported(spec, dt):
-            sweep_fn = partial(_sweep_ind_hybrid_mc, mesh=mesh, interpret=interp)
-    else:
-        sweep_fn = _select_sweep_mc(spec, spec.n, K, dt, itemsize, interp)
-    if sweep_fn is not None:
-        z_b, u_b, chi_b, z2_b = pre["rnd"]
-        sweep_out = sweep_fn(
-            spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
-            data.vx, pre["vei"], states.g, z_b, u_b, chi_b, z2_b,
-            pre["vargL_in"], pre["yadj"], pre["u"],
-        )
+        sweep_out = emu(*args)
+    elif _kernel_draws(spec, data.y.dtype):
+        sweep_out = _sweep_kernel_mc(*args, mesh=mesh if ind_sharded else None)
     else:
         sweep_out = jax.vmap(
             lambda c, r, vei, g, vl, ya, uu: _sweep_xla(spec, data, c, r, vei, g, vl, ya, uu)
@@ -2437,6 +2231,7 @@ def one_iteration_batch(spec: GibbsSpec, data: GibbsData, chain_keys, states,
           pre["yadj"], pre["u"])
 
     return _post_sweep_batch(spec, data, keys, states, pre, sweep_out)
+
 
 
 def _post_sweep_batch(spec: GibbsSpec, data: GibbsData, keys, states, pre,
@@ -2472,7 +2267,7 @@ def _post_sweep_batch(spec: GibbsSpec, data: GibbsData, keys, states, pre,
 def _run_all_multi(spec: GibbsSpec, data: GibbsData, chain_keys, states,
                    mesh=None):
     """K independent chains batched: per-block matvecs become (K,n)x(n,B)
-    matmuls (MXU M=K instead of 1) and every draw vectorises across chains.
+    products and every draw vectorises across chains.
     The reference runs a single chain only."""
     step = lambda ss: one_iteration_batch(spec, data, chain_keys, ss, mesh=mesh)
 

@@ -1,11 +1,11 @@
 """Summary-level MCMC engine (SBayes) over LD matrices.
 
-TPU-native redesign of the reference's dense- and sparse-LD samplers
+A redesign of the reference's dense- and sparse-LD samplers
 (reference: src/SBayesD.cpp:5-609, src/SBayesS.cpp:21-679).  The chain state
 is ``r_hat`` — the adjusted X'y vector — and each SNP draw is followed by a
 rank-1 update ``r_hat += (g_old - g_new) * n * LD[:, i]`` (SBayesD.cpp:264-267).
 
-Blocked formulation (exactly equivalent, MXU-friendly):
+Blocked formulation (exactly equivalent, built on matrix products):
 
     per block b of B SNPs within an LD segment:
         r_local = r_hat[block]              # the block slice IS the dot state
@@ -37,6 +37,7 @@ from .gibbs import (
     STREAM_VE,
     GibbsSpec,
     Priors,
+    _kernel_draws,
     _snp_scan_step,
     alphabet_global_updates,
     pad_to_block,
@@ -188,17 +189,12 @@ def prepare_sgibbs_data(
     return data, n_eff, vary, nvar0, tuple(seg_sizes), tuple(seg_real)
 
 
-def one_s_iteration(spec: GibbsSpec, data: SGibbsData, base_key,
-                    state: SChainState, mesh=None):
-    dt = data.xy.dtype
-    B = spec.block
-    m_pad = spec.m_pad
-    n = spec.n
-    key = jax.random.fold_in(base_key, state.it)
-
-    # stream keys are independent (fold_in), so unused streams can be skipped
-    # without changing the consumed ones (same policy as gibbs._pre_sweep)
+def _iteration_randoms(spec: GibbsSpec, key, dt):
+    """Per-SNP randoms of one iteration (same stream policy as
+    gibbs._pre_sweep: unused streams are skipped without changing the
+    consumed ones)."""
     mi = spec.model_index
+    m_pad = spec.m_pad
     z_snp = jax.random.normal(jax.random.fold_in(key, STREAM_SNP_Z), (m_pad,), dtype=dt)
     if mi == 6:
         # BayesR Gumbel-max fold selection: n_fold uniforms per SNP
@@ -220,12 +216,12 @@ def one_s_iteration(spec: GibbsSpec, data: SGibbsData, base_key,
         z2_snp = jax.random.normal(jax.random.fold_in(key, STREAM_SNP_Z2), (m_pad,), dtype=dt)
     else:
         z2_snp = jnp.zeros((m_pad,), dt)
+    return z_snp, u_snp, chi_snp, z2_snp
 
-    # per-SNP residual variance: varediff*vara + vare (SBayesS.cpp:285);
-    # varediff == 0 for dense LD reduces this to vare (SBayesD semantics).
-    vei = data.varediff * state.vara + state.vare
 
-    consts = {
+def _iteration_consts(spec: GibbsSpec, data: SGibbsData, key, state):
+    dt = data.xy.dtype
+    return {
         "varg": state.varg,
         "s2varg_df": jnp.asarray(spec.s2varg * spec.dfvara, dt),
         "logpi": jnp.log(state.pi),
@@ -236,67 +232,40 @@ def one_s_iteration(spec: GibbsSpec, data: SGibbsData, base_key,
         "reject_key": jax.random.fold_in(key, 99),
     }
 
+
+def one_s_iteration(spec: GibbsSpec, data: SGibbsData, base_key,
+                    state: SChainState, mesh=None):
+    from ..ops import blockgibbs
+
+    dt = data.xy.dtype
+    B = spec.block
+    m_pad = spec.m_pad
+    n = spec.n
+    key = jax.random.fold_in(base_key, state.it)
+    z_snp, u_snp, chi_snp, z2_snp = _iteration_randoms(spec, key, dt)
+
+    # per-SNP residual variance: varediff*vara + vare (SBayesS.cpp:285);
+    # varediff == 0 for dense LD reduces this to vare (SBayesD semantics).
+    vei = data.varediff * state.vara + state.vare
+    consts = _iteration_consts(spec, data, key, state)
+
     r_hat = state.r_hat
     g = state.g
     vargL_full = state.vargL if state.vargL.size else jnp.zeros((m_pad,), dt)
     vargi_acc = jnp.zeros((), dt)
     vargR_acc = jnp.zeros((), dt)
+    kernel = _kernel_draws(spec, dt)
+    z_retry = (blockgibbs.retry_normals(key, m_pad)
+               if kernel and blockgibbs.guard_on(spec) else None)
 
     if data.ld_tiles is not None:
-        from ..ops import blockgibbs
-
-        nbr, k_max = data.ld_tiles.shape[0], data.ld_tiles.shape[1]
+        nbr = data.ld_tiles.shape[0]
         snp_s = int(mesh.shape.get("snp", 1)) if mesh is not None else 1
-        if snp_s > 1 and nbr % snp_s == 0:
-            r_hat, g_new, track, vargL_new, vargi_acc, vargR_acc = (
-                _tiled_sweep_snp_sharded(
-                    spec, consts, data, vei, g, vargL_full,
-                    z_snp, u_snp, chi_snp, z2_snp, r_hat, mesh, key=key,
-                )
-            )
-            return _s_finish(
-                spec, data, key, state, g_new, track,
-                vargL_new if state.vargL.size else state.vargL,
-                r_hat, vargi_acc, vargR_acc,
-            )
-        if spec.use_pallas and blockgibbs.supports_s_tiled(spec, nbr, k_max, dt):
-            import jax as _jax
-
-            interp = _jax.default_backend() == "cpu"
-            c = dict(consts)
-            c["vargL_vec"] = vargL_full
-            P = blockgibbs._pack_rows(
-                spec, c, data.xpx, data.vx, vei, g, z_snp, u_snp, chi_snp
-            )
-            if spec.reject_guard and spec.model_index in (4, 6):
-                z_retry = jax.random.normal(
-                    jax.random.fold_in(key, blockgibbs.STREAM_SNP_ZR),
-                    (blockgibbs.N_RETRY, m_pad), dtype=dt,
-                )
-                P = jnp.concatenate([
-                    P,
-                    blockgibbs._pack_retry_rows(
-                        spec, consts, data.xpx, data.vx, vei, z_retry
-                    ),
-                ])
-            R = P.shape[0]
-            P_blocks = P.reshape(R, nbr, B).transpose(1, 0, 2)
-            dg, track, r_new = blockgibbs.sweep_s_tiled(
-                spec, consts, data.ld_tiles, data.ld_cols, data.ld_valid,
-                r_hat, P_blocks, n, interpret=interp,
-            )
-            g_new = g - dg.astype(dt)
-            vargi_acc, vargR_acc, vargL_new = _s_sweep_accums(
-                spec, data, state, vei, g_new, track, u_snp, z2_snp, vargL_full
-            )
-            return _s_finish(
-                spec, data, key, state, g_new, track,
-                vargL_new if state.vargL.size else state.vargL,
-                r_new.astype(dt), vargi_acc, vargR_acc,
-            )
-        r_hat, g_new, track, vargL_new, vargi_acc, vargR_acc = _tiled_sweep(
+        sweep = (partial(_tiled_sweep_snp_sharded, mesh=mesh)
+                 if snp_s > 1 and nbr % snp_s == 0 else _tiled_sweep)
+        r_hat, g_new, track, vargL_new, vargi_acc, vargR_acc = sweep(
             spec, consts, data, vei, g, vargL_full,
-            z_snp, u_snp, chi_snp, z2_snp, r_hat,
+            z_snp, u_snp, chi_snp, z2_snp, r_hat, z_retry=z_retry,
         )
         return _s_finish(
             spec, data, key, state, g_new, track,
@@ -304,12 +273,10 @@ def one_s_iteration(spec: GibbsSpec, data: SGibbsData, base_key,
             r_hat, vargi_acc, vargR_acc,
         )
 
-    from ..ops import blockgibbs
-
-    if spec.use_pallas and blockgibbs.supports_s(spec, spec.seg_sizes, dt):
-        return _one_s_iteration_pallas(
+    if kernel:
+        return _one_s_iteration_kernel(
             spec, data, key, state, consts, vei, vargL_full,
-            z_snp, u_snp, chi_snp, z2_snp,
+            z_snp, u_snp, chi_snp, z2_snp, z_retry,
         )
 
     g_parts, track_parts, vargL_parts = [], [], []
@@ -401,31 +368,52 @@ def one_s_iteration(spec: GibbsSpec, data: SGibbsData, base_key,
 
 
 def _tiled_sweep_rows(spec: GibbsSpec, consts, dt, tiles, cols, valid,
-                      pv_rows, row_ids, r_hat):
+                      pv_rows, row_ids, r_hat, z_retry=None):
     """Blocked Gibbs over an arbitrary set of LD block rows (global indices
     ``row_ids``) against the FULL r_hat: block row i draws against its
     diagonal tile W_b = n*LD[block,block], then the rank-1 r_hat update
     touches ONLY stored tiles, r_hat[rows of tile (i,j)] += n*tile^T @ dg —
     O(nnz) work, the reference's CSC column-iterator semantics
-    (src/SBayesS.cpp:292-296) in an MXU-shaped layout.  The row subset makes
-    this the shard-local body of the SNP-sharded summary sweep."""
+    (src/SBayesS.cpp:292-296).  The row subset makes this the shard-local
+    body of the SNP-sharded summary sweep.
+
+    The B draws of a row run in the Pallas draws kernel when the spec asks
+    for it (rejection-guard retries from `z_retry`, (N_RETRY, rows*B)),
+    else in the per-SNP XLA scan."""
+    from ..ops import blockgibbs
+
     B = spec.block
     n = spec.n
-    k_max = tiles.shape[1]
+    nbg, k_max = tiles.shape[0], tiles.shape[1]
+    kernel = _kernel_draws(spec, dt)
+    flat = lambda x: x.reshape(-1, *x.shape[2:])
+    P_rows = None
+    if kernel:
+        xpx, vx, vei, g, z, u, chi, z2, vargL, _ = (flat(a) for a in pv_rows)
+        P = blockgibbs.pack_draw_rows(
+            spec, dict(consts, vargL_vec=vargL), xpx, vx, vei, g, z, u, chi,
+            z_retry)
+        P_rows = blockgibbs.to_block_layout(P[None], nbg, B)
 
     def block_body(carry, xs):
         r_hat, vargi_acc, vargR_acc = carry
         (i, (xpx_b, vx_b, vei_b, g_old_b, zb, ub, chib, z2b, vargLb, gidx_b),
-         tiles_i, cols_i, valid_i) = xs
+         P_b, tiles_i, cols_i, valid_i) = xs
         Wb = n * tiles_i[0]  # diagonal tile is stored first
         r0 = jax.lax.dynamic_slice(r_hat, (i * B,), (B,))
-        (r_fin, vargi_acc, vargR_acc), (g_new_b, track_b, vargL_new_b) = jax.lax.scan(
-            partial(_snp_scan_step, spec, consts),
-            (r0, vargi_acc, vargR_acc),
-            (jnp.arange(B), gidx_b, Wb, xpx_b, vx_b, vei_b,
-             g_old_b, zb, ub, chib, z2b, vargLb),
-        )
-        dg = g_old_b - g_new_b
+        if kernel:
+            dg, track_b = blockgibbs.block_draws(spec, P_b, Wb, r0[:, None])
+            dg = dg[:, 0]
+            g_new_b, track_b, vargL_new_b = g_old_b - dg, track_b[:, 0], vargLb
+        else:
+            (_, vargi_acc, vargR_acc), (g_new_b, track_b, vargL_new_b) = (
+                jax.lax.scan(
+                    partial(_snp_scan_step, spec, consts),
+                    (r0, vargi_acc, vargR_acc),
+                    (jnp.arange(B), gidx_b, Wb, xpx_b, vx_b, vei_b,
+                     g_old_b, zb, ub, chib, z2b, vargLb),
+                ))
+            dg = g_old_b - g_new_b
 
         def tile_upd(r_acc, k):
             j = cols_i[k]
@@ -443,13 +431,25 @@ def _tiled_sweep_rows(spec: GibbsSpec, consts, dt, tiles, cols, valid,
     (r_hat, vargi_acc, vargR_acc), (g_new, track, vargL_new) = jax.lax.scan(
         block_body,
         (r_hat, jnp.zeros((), dt), jnp.zeros((), dt)),
-        (row_ids, pv_rows, tiles, cols, valid),
+        (row_ids, pv_rows, P_rows, tiles, cols, valid),
     )
-    return r_hat, g_new, track, vargL_new, vargi_acc, vargR_acc
+    g_new, track, vargL_new = (a.reshape(-1) for a in (g_new, track, vargL_new))
+    if kernel:
+        # order-independent accumulators and BayesL local variances (they
+        # feed only the next sweep): phase C after the kernel's draws
+        one = lambda x: jnp.asarray(x)[None]
+        _, vx_l, vei_l, _, _, u_l, _, z2_l, _, _ = (flat(a) for a in pv_rows)
+        (_, _, vargL_new, _, _, vi, vR) = blockgibbs._phase_c_mc(
+            spec, jax.tree_util.tree_map(one, consts), vx_l, one(vei_l),
+            one(g_new), one(track.astype(jnp.int32)), one(u_l), one(z2_l),
+            one(vargL_new), None, None)
+        vargL_new, vargi_acc, vargR_acc = vargL_new[0], vi[0], vR[0]
+    return (r_hat, g_new, track.astype(jnp.int32), vargL_new, vargi_acc,
+            vargR_acc)
 
 
 def _tiled_sweep(spec: GibbsSpec, consts, data: SGibbsData, vei, g, vargL_full,
-                 z_snp, u_snp, chi_snp, z2_snp, r_hat):
+                 z_snp, u_snp, chi_snp, z2_snp, r_hat, z_retry=None):
     """Single-device tiled sweep: all block rows in order."""
     dt = data.xy.dtype
     B = spec.block
@@ -459,35 +459,25 @@ def _tiled_sweep(spec: GibbsSpec, consts, data: SGibbsData, vei, g, vargL_full,
     pv_rows = (rs(data.xpx), rs(data.vx), rs(vei), rs(g), rs(z_snp),
                rs(u_snp), rs(chi_snp), rs(z2_snp), rs(vargL_full),
                rs(jnp.arange(m_pad)))
-    r_hat, g_new, track, vargL_new, vargi_acc, vargR_acc = _tiled_sweep_rows(
+    return _tiled_sweep_rows(
         spec, consts, dt, data.ld_tiles, data.ld_cols, data.ld_valid,
-        pv_rows, jnp.arange(nbr), r_hat,
+        pv_rows, jnp.arange(nbr), r_hat, z_retry,
     )
-    return (r_hat, g_new.reshape(-1), track.reshape(-1),
-            vargL_new.reshape(-1), vargi_acc, vargR_acc)
 
 
 def _tiled_sweep_snp_sharded(spec: GibbsSpec, consts, data: SGibbsData, vei,
                              g, vargL_full, z_snp, u_snp, chi_snp, z2_snp,
-                             r_hat, mesh, key=None):
-    """SNP-sharded tiled summary sweep: each device's HBM holds only its own
-    LD tile rows; shards sweep in global block order (turn loop; inactive
-    shards skip via lax.cond) and the r_hat deltas merge with one psum over
-    the `snp` axis per turn — the same Markov kernel as the single-device
-    sweep, scaling m beyond one chip's HBM (25 GB of tiles at m=5M spans an
-    8-chip slice).
-
-    The shard-local sweep runs the fused tiled Pallas kernel
-    (ops/blockgibbs.sweep_s_tiled with a shard row offset; r_hat state
-    resident in VMEM across the local tile rows, O(nnz) scatter) — the same
-    kernel the single-device path uses, so the multi-chip configuration runs
-    at kernel speed rather than the per-SNP XLA scan.  Unsupported
-    configurations (f64, block % 128 != 0) fall back to the XLA scan rows.
+                             r_hat, z_retry=None, *, mesh):
+    """SNP-sharded tiled summary sweep: each device's memory holds only its
+    own LD tile rows; shards sweep in global block order (turn loop;
+    inactive shards skip via lax.cond) and the r_hat deltas merge with one
+    psum over the `snp` axis per turn — the same Markov kernel as the
+    single-device sweep, scaling m beyond one device's memory.  The
+    shard-local sweep is `_tiled_sweep_rows` (draws kernel or XLA scan), so
+    the guard's retry normals are the single-device stream sliced per shard.
     Reference hot loop: src/SBayesS.cpp:292-296."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as PS
-
-    from ..ops import blockgibbs
 
     dt = data.xy.dtype
     B = spec.block
@@ -495,81 +485,36 @@ def _tiled_sweep_snp_sharded(spec: GibbsSpec, consts, data: SGibbsData, vei,
     nbr = m_pad // B
     S = int(mesh.shape["snp"])
     nb_loc = nbr // S
-    k_max = data.ld_tiles.shape[1]
-    interp = jax.default_backend() == "cpu"
-    use_kernel = (spec.use_pallas
-                  and blockgibbs.supports_s_tiled(spec, nbr, k_max, dt))
-    guard = bool(spec.reject_guard) and spec.model_index in (4, 6)
     rs = lambda x: x.reshape(nbr, B, *x.shape[1:])
     pv = (rs(data.xpx), rs(data.vx), rs(vei), rs(g), rs(z_snp), rs(u_snp),
           rs(chi_snp), rs(z2_snp), rs(vargL_full), rs(jnp.arange(m_pad)))
+    zr = (jnp.zeros((1, nbr, B), dt) if z_retry is None
+          else z_retry.reshape(z_retry.shape[0], nbr, B))
+    guard_rows = z_retry is not None
 
-    # in-kernel rejection guard consumes the same retry-normal stream as the
-    # single-device kernel path (chain equality across device counts)
-    if use_kernel and guard and key is not None:
-        z_retry = jax.random.normal(
-            jax.random.fold_in(key, blockgibbs.STREAM_SNP_ZR),
-            (blockgibbs.N_RETRY, m_pad), dtype=dt,
-        ).reshape(blockgibbs.N_RETRY, nbr, B)
-    else:
-        z_retry = jnp.zeros((1, nbr, B), dt)
+    if spec.shard_schedule == "pipeline":
+        raise ValueError(
+            "shard_schedule='pipeline' is an individual-level (ibrm) "
+            "schedule; the summary engine supports 'turn' (exact) and "
+            "'concurrent' (near-exact here: cross-shard coupling is "
+            "bounded by LD tiles spanning shard boundaries)"
+        )
 
     def body(tiles, cols, valid, pvt, zr, r_hat, consts):
         sidx = jax.lax.axis_index("snp")
         row_base = sidx * nb_loc
-        xpx_b, vx_b, vei_b, g_b, zb, ub, chib, z2b, vargL_b, gidxb = pvt
+        g_b, vargL_b = pvt[3], pvt[8]
 
-        def sweep_rows(rh, tiles_g, cols_g, valid_g, pvt_g, base_g):
+        def sweep_rows(rh, tiles_g, cols_g, valid_g, pvt_g, zr_g, base_g):
             """Sweep a group of local tile rows against the full r_hat."""
             nbg = tiles_g.shape[0]
-            flat = lambda x: x.reshape(-1, *x.shape[2:])
-            (xpx_g, vx_g, vei_g, g_g, z_g, u_g, chi_g, z2_g, vargL_g,
-             gidx_g, zr_g) = pvt_g
-            if use_kernel:
-                c_pack = dict(consts)
-                c_pack["vargL_vec"] = flat(vargL_g)
-                P = blockgibbs._pack_rows(
-                    spec, c_pack, flat(xpx_g), flat(vx_g), flat(vei_g),
-                    flat(g_g), flat(z_g), flat(u_g), flat(chi_g),
-                )
-                if guard:
-                    P = jnp.concatenate([
-                        P,
-                        blockgibbs._pack_retry_rows(
-                            spec, consts, flat(xpx_g), flat(vx_g),
-                            flat(vei_g),
-                            zr_g.reshape(zr_g.shape[0], -1),
-                        ),
-                    ])
-                R = P.shape[0]
-                P_blocks = P.reshape(R, nbg, B).transpose(1, 0, 2)
-                dg, track, r_new = blockgibbs.sweep_s_tiled(
-                    spec, consts, tiles_g, cols_g, valid_g, rh, P_blocks,
-                    spec.n, row_base=base_g, interpret=interp,
-                )
-                g_new = flat(g_g) - dg.astype(dt)
-                out = blockgibbs._phase_c(
-                    spec, c_pack, flat(vx_g), flat(vei_g), g_new, track,
-                    flat(u_g), flat(z2_g), flat(vargL_g),
-                    jnp.zeros((1,), dt), jnp.zeros((1,), dt),
-                )
-                g_new, track, vargL_new, _, _, vi, vR = out
-                return (r_new.astype(dt), g_new.reshape(nbg, B),
-                        track.reshape(nbg, B), vargL_new.reshape(nbg, B),
-                        vi, vR)
-            row_ids = base_g + jnp.arange(nbg)
-            return _tiled_sweep_rows(
-                spec, consts, dt, tiles_g, cols_g, valid_g, pvt_g[:-1],
-                row_ids, rh)
+            zr_flat = zr_g.reshape(zr_g.shape[0], -1) if guard_rows else None
+            rh, gn, tr, vl, vi, vR = _tiled_sweep_rows(
+                spec, consts, dt, tiles_g, cols_g, valid_g, pvt_g,
+                base_g + jnp.arange(nbg), rh, zr_flat)
+            return (rh, gn.reshape(nbg, B), tr.reshape(nbg, B),
+                    vl.reshape(nbg, B), vi, vR)
 
-        pvt_full = pvt + (zr,)
-        if spec.shard_schedule == "pipeline":
-            raise ValueError(
-                "shard_schedule='pipeline' is an individual-level (ibrm) "
-                "schedule; the summary engine supports 'turn' (exact) and "
-                "'concurrent' (near-exact here: cross-shard coupling is "
-                "bounded by LD tiles spanning shard boundaries)"
-            )
         if spec.shard_schedule == "concurrent":
             # all shards sweep their local tile rows simultaneously against
             # the round-start r_hat; one psum merge per round (r_hat is
@@ -583,7 +528,7 @@ def _tiled_sweep_snp_sharded(spec: GibbsSpec, consts, data: SGibbsData, vei,
             if Rm == 1:
                 # single merge round: no scan, no per-round tile-slice copy
                 rh2, g_new, track, vargL_new, vi, vR = sweep_rows(
-                    r_hat, tiles, cols, valid, pvt_full, row_base)
+                    r_hat, tiles, cols, valid, pvt, zr, row_base)
                 r_hat = r_hat + jax.lax.psum(rh2 - r_hat, "snp")
             else:
                 grp = lambda x: x.reshape(Rm, nb_g, *x.shape[1:])
@@ -597,7 +542,7 @@ def _tiled_sweep_snp_sharded(spec: GibbsSpec, consts, data: SGibbsData, vei,
                     rh, vi_t, vR_t = carry
                     tiles_r, cols_r, valid_r, pvt_r, zr_r, off_r = xs_r
                     rh2, gn, tr, vl, vi, vR = sweep_rows(
-                        rh, tiles_r, cols_r, valid_r, pvt_r + (zr_r,),
+                        rh, tiles_r, cols_r, valid_r, pvt_r, zr_r,
                         row_base + off_r)
                     rh = rh + jax.lax.psum(rh2 - rh, "snp")
                     return (rh, vi_t + vi, vR_t + vR), (gn, tr, vl)
@@ -609,7 +554,7 @@ def _tiled_sweep_snp_sharded(spec: GibbsSpec, consts, data: SGibbsData, vei,
                 vargL_new = vls.reshape(nb_loc, B)
         else:
             def local_sweep(rh):
-                return sweep_rows(rh, tiles, cols, valid, pvt_full, row_base)
+                return sweep_rows(rh, tiles, cols, valid, pvt, zr, row_base)
 
             def skip(rh):
                 return (rh, g_b, jnp.zeros((nb_loc, B), jnp.int32), vargL_b,
@@ -642,7 +587,7 @@ def _tiled_sweep_snp_sharded(spec: GibbsSpec, consts, data: SGibbsData, vei,
         out_specs=(PS("snp", None), PS("snp", None), PS("snp", None),
                    PS(), PS(), PS()),
         check_vma=False,
-    )(data.ld_tiles, data.ld_cols, data.ld_valid, pv, z_retry, r_hat, consts)
+    )(data.ld_tiles, data.ld_cols, data.ld_valid, pv, zr, r_hat, consts)
     return (r_hat, g_new.reshape(-1), track.reshape(-1),
             vargL_new.reshape(-1), vargi, vargR)
 
@@ -723,28 +668,21 @@ def _s_finish(spec: GibbsSpec, data: SGibbsData, key, state: SChainState,
     )
 
 
-def blockgibbs_supports_s_t(spec: GibbsSpec, K: int, dt) -> bool:
-    from ..ops import blockgibbs
-
-    return blockgibbs.supports_s_t(spec, spec.seg_sizes, K, dt)
-
-
 def one_s_iteration_batch(spec: GibbsSpec, data: SGibbsData, chain_keys, states):
-    """One iteration of K summary chains: the transposed Pallas segment sweep
-    runs all chains on the VPU lanes; RNG and global updates vmap."""
+    """One iteration of K summary chains: the segment sweep runs every
+    chain's draws in the per-block kernel (chains tiled across programs);
+    RNG and global updates vmap.  Tiled LD and configurations the kernel
+    does not cover run the single-chain iteration vmapped over chains."""
     from ..ops import blockgibbs
 
     dt = data.xy.dtype
     B = spec.block
     m_pad = spec.m_pad
-    mi = spec.model_index
     K = int(states.it.shape[0])
 
-    use_t = (data.ld_tiles is None and spec.use_pallas
-             and blockgibbs_supports_s_t(spec, K, dt))
-    if not use_t:
-        # vmapped scalar-chain fallback (covers the rejection guard and f64;
-        # force the XLA scan inside so nothing pallas gets vmapped)
+    if data.ld_tiles is not None or not _kernel_draws(spec, dt):
+        # vmapped single-chain iteration on the XLA scan (nothing pallas
+        # gets vmapped)
         spec_x = (
             spec if not spec.use_pallas
             else GibbsSpec(**{**spec.__dict__, "use_pallas": False})
@@ -756,66 +694,31 @@ def one_s_iteration_batch(spec: GibbsSpec, data: SGibbsData, chain_keys, states)
     keys = jax.vmap(lambda k, it: jax.random.fold_in(k, it))(chain_keys, states.it)
 
     def pre_one(key, state):
-        z = jax.random.normal(jax.random.fold_in(key, STREAM_SNP_Z), (m_pad,), dtype=dt)
-        if mi == 6:
-            u = jax.random.uniform(
-                jax.random.fold_in(key, STREAM_SNP_U), (m_pad, spec.n_fold), dtype=dt
-            )
-        elif mi in (3, 4, 5) or spec.reject_guard:
-            u = jax.random.uniform(jax.random.fold_in(key, STREAM_SNP_U), (m_pad,), dtype=dt)
-        else:
-            u = jnp.full((m_pad,), 0.5, dt)
-        if mi in (2, 3):
-            chi = 2.0 * jax.random.gamma(
-                jax.random.fold_in(key, STREAM_SNP_CHI),
-                jnp.asarray((spec.dfvara + 1.0) / 2.0, dt), (m_pad,), dtype=dt,
-            )
-        else:
-            chi = jnp.ones((m_pad,), dt)
-        if mi == 5:
-            z2 = jax.random.normal(jax.random.fold_in(key, STREAM_SNP_Z2), (m_pad,), dtype=dt)
-        else:
-            z2 = jnp.zeros((m_pad,), dt)
+        rnd = _iteration_randoms(spec, key, dt)
         vei = data.varediff * state.vara + state.vare
-        consts = {
-            "varg": state.varg,
-            "s2varg_df": jnp.asarray(spec.s2varg * spec.dfvara, dt),
-            "logpi": jnp.log(state.pi),
-            "lambda2": state.lambda2,
-            "vara_fold": state.vara_fold,
-            "fold": data.fold,
-            "vary": jnp.asarray(spec.vary, dt),
-            "reject_key": jax.random.fold_in(key, 99),
-        }
+        consts = _iteration_consts(spec, data, key, state)
         vargL_full = state.vargL if state.vargL.size else jnp.zeros((m_pad,), dt)
-        return consts, vei, vargL_full, (z, u, chi, z2)
+        c = dict(consts, vargL_vec=vargL_full)
+        z_retry = (blockgibbs.retry_normals(key, m_pad)
+                   if blockgibbs.guard_on(spec) else None)
+        z, u, chi, _ = rnd
+        P = blockgibbs.pack_draw_rows(
+            spec, c, data.xpx, data.vx, vei, state.g, z, u, chi, z_retry)
+        return consts, vei, vargL_full, rnd, P
 
-    consts_b, vei_b, vargL_b, rnd_b = jax.vmap(pre_one)(keys, states)
+    consts_b, vei_b, vargL_b, rnd_b, P = jax.vmap(pre_one)(keys, states)
     z_b, u_b, chi_b, z2_b = rnd_b
-
-    def pack_one(consts_k, vei, g, z, uu, chi, vargL):
-        c = dict(consts_k)
-        c["vargL_vec"] = vargL
-        return blockgibbs._pack_rows(
-            spec, c, data.xpx, data.vx, vei, g, z, uu, chi
-        )
-
-    P = jax.vmap(pack_one)(consts_b, vei_b, states.g, z_b, u_b, chi_b, vargL_b)
     R = P.shape[1]  # (K, R, m_pad)
 
-    interp = jax.default_backend() == "cpu"
     r_hat_b = states.r_hat  # (K, m_pad)
     dg_parts, track_parts = [], []
     off = 0
     for seg_i, mc in enumerate(spec.seg_sizes):
-        nblocks = mc // B
         P_seg = jax.lax.dynamic_slice(P, (0, 0, off), (K, R, mc))
-        P_blocks = blockgibbs.to_block_layout(P_seg, nblocks, B)
+        P_blocks = blockgibbs.to_block_layout(P_seg, mc // B, B)
         r_seg = jax.lax.dynamic_slice(r_hat_b, (0, off), (K, mc))
         dg_seg, track_seg, r_new = blockgibbs.sweep_s_segment_t(
-            spec, consts_b, data.ld_segs[seg_i], r_seg, P_blocks, spec.n,
-            interpret=interp,
-        )
+            spec, data.ld_segs[seg_i], r_seg, P_blocks, spec.n)
         r_hat_b = jax.lax.dynamic_update_slice(
             r_hat_b, r_new.astype(dt), (0, off)
         )
@@ -829,7 +732,7 @@ def one_s_iteration_batch(spec: GibbsSpec, data: SGibbsData, chain_keys, states)
 
     (g_b, track, vargL_new, _, _, vargi_acc, vargR_acc) = blockgibbs._phase_c_mc(
         spec, consts_b, data.vx, vei_b, g_b, track, u_b, z2_b, vargL_b,
-        jnp.zeros((K, 1), dt), jnp.zeros((K, 1), dt),
+        None, None,
     )
 
     return jax.vmap(
@@ -875,8 +778,8 @@ def run_s_chains(spec: GibbsSpec, data: SGibbsData, priors: Priors, pi_init,
                  seed=666666, nchains=4, checkpoint_path=None, progress=False,
                  chunk_records=0):
     """K independent summary chains with split-R-hat diagnostics; the
-    transposed segment kernel runs every chain's sequential sweep on the VPU
-    lanes of one grid pass (the reference runs a single chain only).  With
+    segment sweep runs every chain's draws in the per-block kernel (the
+    reference runs a single chain only).  With
     `checkpoint_path`/`progress`, execution is chunked and a killed run
     resumes bit-identically (same machinery as the individual engine)."""
     from .gibbs import _run_segmented
@@ -1073,26 +976,21 @@ def segment_unpad_index(spec: GibbsSpec):
     return np.asarray(idx, dtype=np.int64)
 
 
-def _one_s_iteration_pallas(spec, data, key, state, consts, vei, vargL_full,
-                            z_snp, u_snp, chi_snp, z2_snp):
-    """Fused-kernel variant of the summary sweep: per-SNP coefficients packed
-    vectorised (same phase-A as the individual kernel), one Pallas program
-    per LD segment, order-independent accumulators afterwards."""
-    import jax as _jax
-
+def _one_s_iteration_kernel(spec, data, key, state, consts, vei, vargL_full,
+                            z_snp, u_snp, chi_snp, z2_snp, z_retry):
+    """Dense-segment summary sweep with the per-block draws in the Pallas
+    kernel: per-SNP coefficients packed vectorised (phase A), one
+    `sweep_s_segment_t` scan per LD segment as a single chain,
+    order-independent accumulators afterwards."""
     from ..ops import blockgibbs
 
     dt = data.xy.dtype
     B = spec.block
-    m_pad = spec.m_pad
-    n = spec.n
-    interp = _jax.default_backend() == "cpu"
-
     c = dict(consts)
     c["vargL_vec"] = vargL_full
-    P = blockgibbs._pack_rows(
-        spec, c, data.xpx, data.vx, vei, state.g, z_snp, u_snp, chi_snp
-    )
+    P = blockgibbs.pack_draw_rows(
+        spec, c, data.xpx, data.vx, vei, state.g, z_snp, u_snp, chi_snp,
+        z_retry)
     R = P.shape[0]
 
     r_hat = state.r_hat
@@ -1100,15 +998,13 @@ def _one_s_iteration_pallas(spec, data, key, state, consts, vei, vargL_full,
     off = 0
     for seg_i, mc in enumerate(spec.seg_sizes):
         P_seg = jax.lax.dynamic_slice(P, (0, off), (R, mc))
-        P_blocks = P_seg.reshape(R, mc // B, B).transpose(1, 0, 2)
+        P_blocks = blockgibbs.to_block_layout(P_seg[None], mc // B, B)
         r_seg = jax.lax.dynamic_slice(r_hat, (off,), (mc,))
-        dg_seg, track_seg, r_new = blockgibbs.sweep_s_segment(
-            spec, consts, data.ld_segs[seg_i], r_seg, P_blocks, n,
-            interpret=interp,
-        )
-        r_hat = jax.lax.dynamic_update_slice(r_hat, r_new.astype(dt), (off,))
-        dg_parts.append(dg_seg)
-        track_parts.append(track_seg)
+        dg_seg, track_seg, r_new = blockgibbs.sweep_s_segment_t(
+            spec, data.ld_segs[seg_i], r_seg[None], P_blocks, spec.n)
+        r_hat = jax.lax.dynamic_update_slice(r_hat, r_new[0].astype(dt), (off,))
+        dg_parts.append(dg_seg[0])
+        track_parts.append(track_seg[0])
         off += mc
 
     dg = jnp.concatenate(dg_parts).astype(dt)

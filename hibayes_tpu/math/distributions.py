@@ -1,6 +1,6 @@
 """Distribution samplers for the Gibbs engines.
 
-TPU-native equivalents of the reference's distribution kernels
+Device-side (JAX) equivalents of the reference's distribution kernels
 (reference: src/stats.cpp:3-76).  Two flavours are provided:
 
 * keyed samplers (``normal``, ``chisq`` ...) that draw from a JAX PRNG key —

@@ -1,6 +1,6 @@
-"""Genomic relationship matrix (GRM) on the MXU.
+"""Genomic relationship matrix (GRM) on the device.
 
-TPU-native equivalent of the reference's BLAS dsyrk path
+Device-side (JAX) equivalent of the reference's BLAS dsyrk path
 (reference: src/rm.cpp:5-53): center columns, G = Zc Zc^T, normalise by
 mean(diag), optional inverse / eigendecomposition (for BSLMM).
 """
@@ -18,7 +18,7 @@ def make_grm(M, lambda_=0.0, inverse=False, eigen=False, dtype=None):
     M_np = np.asarray(M)
     out_dt = dtype or jnp.result_type(M_np, jnp.float32)
     if np.issubdtype(M_np.dtype, np.integer) and M_np.dtype.itemsize == 1:
-        # int8 MXU fast path: Zc Zc' = MM' - v1' - 1v' + (mu.mu) 11' with
+        # int8 fast path: Zc Zc' = MM' - v1' - 1v' + (mu.mu) 11' with
         # MM' exact in int32 and the rank-1 mean corrections in out_dt
         Mi = jnp.asarray(M_np)
         S = jax.lax.dot_general(

@@ -1,9 +1,9 @@
 """Linear solvers: conjugate gradient and diagonally preconditioned CG.
 
-TPU-native equivalents of the reference's solvers (src/solver.cpp:3-117):
+Device-side (JAX) equivalents of the reference's solvers (src/solver.cpp:3-117):
 pure functional lax.while_loop implementations over an abstract matvec, so
 the same code serves dense LD, chromosome-block LD, and sparse A-inverse
-operators; XLA fuses the vector work and keeps matvecs on the MXU.
+operators; XLA fuses the vector work and keeps matvecs on the device.
 """
 
 from __future__ import annotations

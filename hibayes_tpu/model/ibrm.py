@@ -10,10 +10,10 @@ from __future__ import annotations
 
 import time
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import runtime
 from ..data.windows import build_windows
 from ..engine import gibbs as G
 from ..math.grm import make_grm
@@ -188,7 +188,7 @@ def ibrm(
     nlevels = tuple(int(len(lv)) for lv in mf.R_levels)
     n_fold = len(Pi)
 
-    # integer genotypes stay int8 in HBM (4x capacity/bandwidth)
+    # integer genotypes stay int8 on the device (4x capacity/bandwidth)
     geno_dtype = "int8" if np.issubdtype(np.asarray(M_phen).dtype, np.integer) else None
     # SNP-sharded meshes / the concurrent emulation need the block count
     # divisible by shards (x merge rounds for the concurrent schedule)
@@ -216,7 +216,7 @@ def ibrm(
         dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
         dfr=pr.dfr, s2r=pr.s2r, s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0,
         use_bslmm=use_bslmm,
-        use_pallas=dtype == jnp.float32 and jax.default_backend() != "cpu",
+        use_pallas=runtime.use_kernels(),
         shard_schedule=shard_schedule, merge_rounds=int(merge_rounds),
         emulate_shards=int(emulate_shards),
     )
@@ -285,11 +285,11 @@ def _print_header(spec, pr, Pi, fold, method, n, m, nc, nlevels, nw):
 
 
 def _big_matmul(A, B, flop_threshold=2e10, chunk_bytes=1 << 27):
-    """A @ B, routed through the device MXU in column chunks when large.
+    """A @ B, routed through the device in column chunks when large.
 
     The GEBV assembly (M @ alpha_samples', R/bayes.r:303-308) is ~26 TFLOP at
-    the 500k-SNP flagship config — minutes in host BLAS, seconds on the MXU.
-    Small products stay in NumPy (f64, exact for the golden tests)."""
+    the 500k-SNP flagship config — minutes in host BLAS.  Small products
+    stay in NumPy (f64, exact for the golden tests)."""
     A = np.asarray(A)
     B = np.asarray(B)
     if 2.0 * A.shape[0] * A.shape[1] * B.shape[1] < flop_threshold:

@@ -14,6 +14,7 @@ import time
 import jax.numpy as jnp
 import numpy as np
 
+from .. import runtime
 from ..data.ld import BlockDiagLD, DenseLD, SparseLD
 from ..data.sparse_ld import TiledSparseLD, _tiled_matvec
 from ..data.sumstats import sumstat_matrix
@@ -44,8 +45,8 @@ def _coerce_ld(ldm):
 
         if sp.issparse(ldm):
             if ldm.shape[0] > _SPARSE_DENSIFY_LIMIT:
-                # O(nnz) host/device memory at any m; tile=128 so the fused
-                # tiled Pallas sweep (supports_s_tiled) runs it
+                # O(nnz) host/device memory at any m; tile=128 so the
+                # sweep's draws kernel runs it (a power-of-two block)
                 return TiledSparseLD.from_scipy(ldm, tile=128)
             return SparseLD.from_scipy(ldm)
     except ImportError:
@@ -134,7 +135,7 @@ def sbrm(
         vargl_strict_pos=True, real_excl_nvar0=True,
         reject_guard=sparse_semantics, vary=vary,
         seg_sizes=seg_sizes, seg_real=seg_real,
-        use_pallas=dtype == jnp.float32 and __import__("jax").default_backend() != "cpu",
+        use_pallas=runtime.use_kernels(),
         shard_schedule=shard_schedule, merge_rounds=int(merge_rounds),
     )
     if verbose:

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import runtime
 from ..data.pedigree import (
     ImputationOperator,
     make_ainv,
@@ -283,7 +284,7 @@ def ssbrm(
         dfr=pr.dfr, s2r=pr.s2r, s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0,
         ne=ne if ne else 0, qe=qe if ne else 0,
         qe_pad=int(gdata.epsl_counts.shape[0]) if ne else 0,
-        use_pallas=dtype == jnp.float32 and jax.default_backend() != "cpu",
+        use_pallas=runtime.use_kernels(),
     )
     if verbose:
         _print_header(spec, pr, Pi, fold, method, n, m, nc, nlevels, nw)

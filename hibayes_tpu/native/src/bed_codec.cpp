@@ -3,7 +3,7 @@
 // Host-bound data-path counterpart of the reference's Rcpp/OpenMP loader
 // (reference: src/read_bed.cpp:97-232) and column statistics
 // (src/tXXmat.cpp:43-98), rebuilt as a dependency-free shared library driven
-// from Python via ctypes.  Decodes straight into the int8 layout the TPU
+// from Python via ctypes.  Decodes straight into the int8 layout the device
 // ingestion path wants (individuals x SNPs, row-major), OpenMP across SNPs.
 //
 // Coding contract (matches R/read_plink.r:20): additive A1A1=2, A1A2=1,

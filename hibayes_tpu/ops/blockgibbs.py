@@ -1,33 +1,27 @@
-"""Fused Pallas TPU kernel for the blocked-Gibbs SNP sweep (v2).
+"""Pallas-Triton kernels for the sequential draws of the blocked Gibbs sweep.
 
-The insight driving this kernel: in every alphabet member, the only quantity
-that depends on the *sequential* residual state is rhs = dot(X_j, yadj) —
-everything else (per-SNP variances, conditional sds, spike/slab thresholds)
-depends only on per-SNP inputs known before the sweep.  So:
+Every engine sweeps SNP blocks of B in a `lax.scan`: r0 = X_b' yadj (or the
+r_hat slice), the B sequential draws, then one residual product.  Only the
+draws are sequential, and in every alphabet member the only quantity they
+read from the moving residual is rhs = dot(X_j, yadj); everything else
+depends on per-SNP inputs known before the sweep.  So:
 
-  phase A (outside, vectorized XLA over all m):  per-SNP coefficients
-     - conditional precision v_j, inv_v_j, sd_j*z_j
-     - spike/slab acceptance rewritten EXP-FREE:
-         u >= 1/(1+exp(s1-s0))  <=>  rhs^2 >= thresh_j,
-         thresh_j = 2 v_j ve_j (log((1-u_j)/u_j) + 0.5 logdetV_j - dlogpi)
-       (algebraic identity of src/Bayes.cpp:643-645)
-     - BayesR fold coefficients s_f = A_f + B_f rhs^2
-  phase B (this kernel, grid sequential over blocks):
-     r0 = yadj @ X_b (MXU);  tiny scalar loop over B:
-         rhs -> component select -> gi -> r_local += dg W_b[j,:]
-     then yadj/u update via one MXU matmul per block
-  phase C (outside, vectorized): BayesL local variances (they feed only the
-     *next* sweep), variance accumulators, g_new = g_old - dg.
+  phase A (XLA, vectorised over all m): `_pack_rows` packs each SNP's
+     coefficients into rows — conditional precision, sd*z, the spike/slab
+     acceptance rewritten exp-free (u >= 1/(1+exp(s1-s0)) <=> rhs^2 >=
+     thresh_j, src/Bayes.cpp:643-645), the BayesR fold logits A_f + B_f rhs^2
+     with Gumbel noise folded into A_f (src/Bayes.cpp:747-766);
+  phase B (`block_draws`, this kernel): the B draws of one block for a tile
+     of chains, rhs_j = r0_j + xpx_j g_j + sum_{i<j} W[j,i] dg_i;
+  phase C (XLA, vectorised): `_phase_c*` — BayesL local variances (they feed
+     only the next sweep), variance accumulators.
 
-Per sequential step only ~6 scalar flops + two masked lane reduces + one
-(1,B) axpy remain — no transcendentals for ANY model: BayesR's categorical
-fold draw uses Gumbel-max (argmax_f of A_f + B_f rhs^2 with the Gumbel noise
-precomputed into A_f by phase A), which is distribution-identical to the
-inverse-CDF draw but exp-free in the chain.  Scalar operands are packed into
-one (R,B) tile so a single masked reduce extracts all of them at once.
-
-The XLA scan path (engine/gibbs.py) remains the reference implementation;
-tests/test_pallas_kernel.py checks both produce the same chain.
+The kernel loops over micro-blocks of 16 draws: at each micro-block start
+one full-f32 product W[j0:j0+16, :] @ dg folds in every earlier draw (rows
+>= j0 of dg are still zero); within it the i < j terms are a 16-row
+reduction per draw.  Chains are independent, so the grid runs over
+tiles of 16 chains.  The per-SNP XLA scan (`engine/gibbs._snp_scan_step`)
+is the reference; tests/test_draws_kernel.py checks the kernel against it.
 """
 
 from __future__ import annotations
@@ -37,25 +31,21 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from ..engine.gibbs import GibbsSpec
+from .. import runtime
+from ..engine.gibbs import HIGHEST, GibbsSpec
 
 F32 = jnp.float32
 NEG_BIG = -1e30
 POS_BIG = 1e30
 
-# v5e has 128 MiB of VMEM per core (measured empirically on this chip: a
-# 127 MiB scratch compiles, 130 MiB does not), but Mosaic's DEFAULT
-# vmem_limit is far lower — kernels must raise it explicitly.  The budget
-# below is what the supports_* capacity checks plan against; the compiler
-# limit adds headroom for Mosaic's own temporaries.  The headline win: the
-# int8-resident transposed sweep (X block VMEM-resident, ONE HBM pass per
-# iteration) now reaches n≈90k rows at block=128 instead of n≈16k — at the
-# 50k-individual anchor this halves the sweep's HBM traffic vs the
-# chunked-DMA kernel (which reads X twice: r0 pass + delta pass).
-VMEM_BUDGET = 96 * 1024 * 1024
-_COMPILER_PARAMS = pltpu.CompilerParams(vmem_limit_bytes=116 * 1024 * 1024)
+# chains per program: pl.dot needs every dimension >= 16
+CHAIN_TILE = 16
+# draws per micro-block of the in-block correction
+MICRO = 16
+# measured best of 1/2/4 warps on the H100 (PERF.md, PR 1)
+NUM_WARPS = 2
 
 
 def _pack_rows(spec: GibbsSpec, consts, xpx, vx, vei, g, z_snp, u_snp, chi_snp):
@@ -109,17 +99,11 @@ def _pack_rows(spec: GibbsSpec, consts, xpx, vx, vei, g, z_snp, u_snp, chi_snp):
     else:  # BayesR — Gumbel-max categorical fold draw.  The fold logits are
         # s_f = A_f + B_f rhs^2 (exact rewrite of src/Bayes.cpp:747-766); the
         # categorical draw argmax_f(s_f + G_f) with iid Gumbel noise G_f is
-        # distribution-identical to the inverse-CDF draw but needs NO
+        # distribution-identical to the inverse-CDF draw but needs no
         # exp/normalise/cumsum in the sequential chain — the Gumbels fold
         # into A_f here in phase A, the per-draw work is n_fold FMAs+compares.
-        # The (m_pad, n_fold) uniforms are transposed to row-major (n_fold,
-        # m_pad) BEFORE the log-log transform and the result is fenced with
-        # an optimization_barrier: a (m, 4) array is lane-padded 32x on TPU,
-        # and letting XLA fuse strided reads of it into the P-block
-        # transpose degrades that copy to ~370 ms/iter at non-power-of-2 m
-        # (profiled at m=500k; clean (nf, m) rows + the barrier restore it).
         ut = jnp.maximum(u_snp.astype(dt).T, 1e-12)     # (n_fold, m_pad)
-        gum = jax.lax.optimization_barrier(-jnp.log(-jnp.log(ut)))
+        gum = -jnp.log(-jnp.log(ut))
         rows = [rg, g]
         for f in range(1, spec.n_fold):
             vara_f = jnp.maximum(consts["vara_fold"][f], 1e-30).astype(dt)
@@ -135,407 +119,88 @@ def _pack_rows(spec: GibbsSpec, consts, xpx, vx, vei, g, z_snp, u_snp, chi_snp):
     return jnp.stack(rows).astype(dt)  # (R, m_pad)
 
 
-def _kernel(spec: GibbsSpec, n: int, B: int, R: int,
-            scal_ref, P_ref, X_ref, W_ref, yadj_in_ref, u_in_ref,
-            dg_out_ref, track_out_ref, yadj_out_ref, u_out_ref,
-            yadj_s, u_s, r_local, dg_s, track_s):
+# ---------------------------------------------------------------------------
+# SBayesS rejection guard: N_RETRY precomputed retry draws per SNP (the
+# reference retries <= 100 times from the same conditional then zeroes,
+# src/SBayesS.cpp:388-398; bounded retries with independent normals are the
+# same truncation up to the tail probability)
+# ---------------------------------------------------------------------------
+
+N_RETRY = 8
+STREAM_SNP_ZR = 15  # retry-normal stream (engine/gibbs.py stream registry)
+
+
+def guard_on(spec: GibbsSpec) -> bool:
+    return bool(spec.reject_guard) and spec.model_index in (4, 6)
+
+
+def _guard_base(spec: GibbsSpec) -> int:
+    """Index of the first guard row (vx) appended after the _pack_rows rows."""
     mi = spec.model_index
-    b = pl.program_id(0)
-    nblocks = pl.num_programs(0)
-
-    @pl.when(b == 0)
-    def _():
-        yadj_s[:] = yadj_in_ref[:]
-        u_s[:] = u_in_ref[:]
-
-    Xb = X_ref[0].astype(F32)   # (n, B); int8 storage casts in VMEM
-    P = P_ref[0]                # (R, B)
-
-    r_local[:] = jax.lax.dot_general(
-        yadj_s[:], Xb, (((1,), (0,)), ((), ())), preferred_element_type=F32
-    )
-    dg_s[:] = jnp.zeros((1, B), F32)
-    track_s[:] = jnp.zeros((1, B), F32)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, B), 1)
-    logpi0 = scal_ref[0]
-
-    def body(j, _):
-        mask = lane == j
-        red = jnp.sum(jnp.where(mask, P, 0.0), axis=1)  # (R,)
-        vals = lambda r: red[r]
-        rj = jnp.sum(jnp.where(mask, r_local[:], 0.0))
-        rhs = rj + red[0]
-        gi, track = _draw_from_vals(spec, logpi0, vals, rhs)
-        dg = red[1] - gi
-        dg_s[:] = jnp.where(mask, dg, dg_s[:])
-        if track is not None:
-            track_s[:] = jnp.where(mask, track, track_s[:])
-        wrow = W_ref[0, pl.ds(j, 1), :]
-        r_local[:] = r_local[:] + dg * wrow
-        return 0
-
-    jax.lax.fori_loop(0, B, body, 0)
-
-    dg_out_ref[0] = dg_s[:]
-    track_out_ref[0] = track_s[:]
-
-    delta = jax.lax.dot_general(
-        dg_s[:], Xb, (((1,), (1,)), ((), ())), preferred_element_type=F32
-    )
-    yadj_s[:] = yadj_s[:] + delta
-    u_s[:] = u_s[:] - delta
-
-    @pl.when(b == nblocks - 1)
-    def _():
-        yadj_out_ref[:] = yadj_s[:]
-        u_out_ref[:] = u_s[:]
+    if mi in (1, 2, 5):
+        return 4
+    if mi in (3, 4):
+        return 5
+    return 2 + 4 * (spec.n_fold - 1) + 1  # BayesR: [rg,g, (A,B,iv,sz)*, A0]
 
 
-def supports(spec: GibbsSpec, n: int, dtype, geno_itemsize: int = 4) -> bool:
-    if dtype != jnp.float32:
-        return False
-    if spec.reject_guard:
-        return False
-    # double-buffered X block (+ f32 cast temp) + W + yadj/u rows
-    vmem = (
-        n * spec.block * geno_itemsize * 2
-        + n * spec.block * 4
-        + spec.block * spec.block * 4 * 2
-        + n * 4 * 4
-    )
-    return vmem < VMEM_BUDGET
-
-
-def sweep(spec: GibbsSpec, consts, X_blocks, W_blocks, xpx, vx, vei, g,
-          z_snp, u_snp, chi_snp, z2_snp, vargL, yadj, u, interpret=False):
-    """Run one full SNP sweep.  Returns (g_new, track, vargL_new, yadj, u,
-    vargi_acc, vargR_acc) with identical semantics to the XLA scan path."""
-    nblocks, n, B = X_blocks.shape
-    m_pad = nblocks * B
+def _pack_retry_rows(spec: GibbsSpec, consts, xpx, vx, vei, z_retry):
+    """Guard rows: [vx, sd*z_1 .. sd*z_NR] (BayesC) or
+    [vx, (sd_f*z_1)_f .. (sd_f*z_NR)_f] (BayesR, folds 1..nf-1)."""
     mi = spec.model_index
-    dt = F32
+    x = xpx.astype(F32)
+    ve = vei.astype(F32)
+    act = vx > 0
+    rows = [vx.astype(F32)]
+    if mi == 4:
+        v = x + ve / consts["varg"].astype(F32)
+        sd = jnp.where(act, jnp.sqrt(ve / v), 0.0)
+        for r in range(N_RETRY):
+            rows.append(sd * z_retry[r].astype(F32))
+    elif mi == 6:
+        sds = []
+        for f in range(1, spec.n_fold):
+            vara_f = jnp.maximum(consts["vara_fold"][f], 1e-30).astype(F32)
+            vf = x + ve / vara_f
+            sds.append(jnp.where(act, jnp.sqrt(ve / vf), 0.0))
+        for r in range(N_RETRY):
+            for f in range(1, spec.n_fold):
+                rows.append(sds[f - 1] * z_retry[r].astype(F32))
+    return jnp.stack(rows)
 
-    consts = dict(consts)
-    consts["vargL_vec"] = vargL
+
+def retry_normals(key, m_pad: int):
+    """(N_RETRY, m_pad) guard retry normals of one iteration (drawn for the
+    whole genome so every shard layout sees the same stream)."""
+    return jax.random.normal(jax.random.fold_in(key, STREAM_SNP_ZR),
+                             (N_RETRY, m_pad), dtype=F32)
+
+
+def pack_draw_rows(spec: GibbsSpec, consts, xpx, vx, vei, g, z_snp, u_snp,
+                   chi_snp, z_retry=None):
+    """`_pack_rows` plus, when the rejection guard is on, its retry rows
+    built from `z_retry` (N_RETRY, m) — see `retry_normals`."""
     P = _pack_rows(spec, consts, xpx, vx, vei, g, z_snp, u_snp, chi_snp)
-    R = P.shape[0]
-    P_blocks = P.reshape(R, nblocks, B).transpose(1, 0, 2)  # (nblocks, R, B)
-
-    scal = jnp.stack([consts["logpi"][0].astype(dt)])
-
-    kern = functools.partial(_kernel, spec, n, B, R)
-    out_shapes = (
-        jax.ShapeDtypeStruct((nblocks, 1, B), F32),   # dg
-        jax.ShapeDtypeStruct((nblocks, 1, B), F32),   # track
-        jax.ShapeDtypeStruct((1, n), F32),            # yadj
-        jax.ShapeDtypeStruct((1, n), F32),            # u
-    )
-    full = lambda shape: pl.BlockSpec(shape, lambda b: tuple(0 for _ in shape),
-                                      memory_space=pltpu.VMEM)
-
-    dg, track_f, yadj_o, u_o = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),                                   # scal
-            pl.BlockSpec((1, R, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),   # P
-            pl.BlockSpec((1, n, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),   # X
-            pl.BlockSpec((1, B, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),   # W
-            full((1, n)),
-            full((1, n)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, 1, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            full((1, n)),
-            full((1, n)),
-        ),
-        out_shape=out_shapes,
-        scratch_shapes=[
-            pltpu.VMEM((1, n), F32),    # yadj_s
-            pltpu.VMEM((1, n), F32),    # u_s
-            pltpu.VMEM((1, B), F32),    # r_local
-            pltpu.VMEM((1, B), F32),    # dg_s
-            pltpu.VMEM((1, B), F32),    # track_s
-        ],
-        interpret=interpret,
-        compiler_params=None if interpret else _COMPILER_PARAMS,
-    )(
-        scal, P_blocks, X_blocks, W_blocks.astype(F32),
-        yadj.astype(F32).reshape(1, n), u.astype(F32).reshape(1, n),
-    )
-
-    dg = dg.reshape(m_pad)
-    track = track_f.reshape(m_pad).astype(jnp.int32)
-    g_new = g.astype(F32) - dg
-
-    # phase C: vectorized post-sweep state (order-independent reductions)
-    act = vx > 0
-    if mi == 4:
-        vargi_acc = jnp.sum(jnp.where(track == 1, g_new * g_new, 0.0))
-    else:
-        vargi_acc = jnp.zeros((), dt)
-    if mi == 6:
-        ffold = consts["fold"][track]
-        vargR_acc = jnp.sum(
-            jnp.where(track > 0, g_new * g_new / jnp.maximum(ffold, 1e-30), 0.0)
-        )
-    else:
-        vargR_acc = jnp.zeros((), dt)
-    if mi == 5:
-        # local shrinkage update feeds only the next sweep (src/Bayes.cpp:729)
-        lam2 = consts["lambda2"].astype(dt)
-        lam = jnp.sqrt(lam2)
-        ve = vei.astype(dt)
-        znew = z2_snp.astype(dt)
-        uu = u_snp.astype(dt)
-        mu_ig = jnp.sqrt(ve) * lam / jnp.maximum(jnp.abs(g_new), 1e-30)
-        y2 = znew * znew
-        xig = mu_ig + 0.5 * mu_ig * mu_ig * y2 / lam2 - 0.5 * (mu_ig / lam2) * jnp.sqrt(
-            4.0 * mu_ig * lam2 * y2 + mu_ig * mu_ig * y2 * y2
-        )
-        ig = jnp.where(uu <= mu_ig / (mu_ig + xig), xig, mu_ig * mu_ig / xig)
-        vargi = 1.0 / ig
-        ok = (vargi > 0) if spec.vargl_strict_pos else (vargi >= 0)
-        vargL_new = jnp.where(act & ok, vargi, vargL.astype(dt))
-    else:
-        vargL_new = vargL.astype(dt)
-
-    return (
-        g_new, track, vargL_new,
-        yadj_o.reshape(n), u_o.reshape(n),
-        vargi_acc, vargR_acc,
-    )
-
-
-# ---------------------------------------------------------------------------
-# multi-chain fused sweep: K chains share the genotype block, the matvecs
-# become (K,n)x(n,B) MXU matmuls and every draw runs on (K,1) sublane vectors
-# ---------------------------------------------------------------------------
-
-
-def _kernel_mc(spec: GibbsSpec, n: int, B: int, R: int, K: int,
-               scal_ref, P_ref, X_ref, W_ref, yadj_in_ref, u_in_ref,
-               dg_out_ref, track_out_ref, yadj_out_ref, u_out_ref,
-               yadj_s, u_s, r_local, dg_s, track_s):
-    mi = spec.model_index
-    b = pl.program_id(0)
-    nblocks = pl.num_programs(0)
-
-    @pl.when(b == 0)
-    def _():
-        yadj_s[:] = yadj_in_ref[:]
-        u_s[:] = u_in_ref[:]
-
-    Xb = X_ref[0].astype(F32)   # (n, B)
-    P = P_ref[0]                # (R*K, B)
-
-    # r0 = yadj @ X_b : (K, n) x (n, B) -> (K, B)
-    r_local[:] = jax.lax.dot_general(
-        yadj_s[:], Xb, (((1,), (0,)), ((), ())), preferred_element_type=F32
-    )
-    dg_s[:] = jnp.zeros((K, B), F32)
-    track_s[:] = jnp.zeros((K, B), F32)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, B), 1)
-    nf = spec.n_fold
-    # per-chain scalar constants: K scalar SMEM reads (vector SMEM loads are
-    # not supported by Mosaic)
-    logpi0 = jnp.stack([scal_ref[0, k] for k in range(K)]).reshape(K, 1)
-
-    def body(j, _):
-        mask = lane == j
-        red = jnp.sum(jnp.where(mask, P, 0.0), axis=1, keepdims=True)  # (R*K, 1)
-
-        def vals(r):
-            return jax.lax.slice_in_dim(red, r * K, (r + 1) * K, axis=0)  # (K,1)
-
-        rj = jnp.sum(jnp.where(mask, r_local[:], 0.0), axis=1, keepdims=True)
-        rg_j = vals(0)
-        g_old = vals(1)
-        rhs = rj + rg_j
-
-        if mi in (1, 2):
-            gi = rhs * vals(2) + vals(3)
-        elif mi in (3, 4):
-            ind = rhs * rhs >= vals(4)
-            gi = jnp.where(ind, rhs * vals(2) + vals(3), 0.0)
-            track_s[:] = jnp.where(mask, ind.astype(F32), track_s[:])
-        elif mi == 5:
-            gi = rhs * vals(2) + vals(3)
-            gi = jnp.where(jnp.abs(gi) < 1e-6, jnp.float32(1e-6), gi)
-            gi = jnp.where(vals(2) > 0, gi, 0.0)
-        else:  # BayesR — Gumbel-max fold selection (noise folded into A rows)
-            q = rhs * rhs
-            best = vals(2 + 4 * (nf - 1))   # fold-0 gumbel logit row
-            ind = jnp.zeros((K, 1), jnp.int32)
-            ivf = jnp.zeros((K, 1), F32)
-            szf = jnp.zeros((K, 1), F32)
-            for f in range(1, nf):
-                sf = vals(2 + 4 * (f - 1)) + vals(3 + 4 * (f - 1)) * q
-                sel = sf > best
-                best = jnp.maximum(sf, best)
-                ind = jnp.where(sel, f, ind)
-                ivf = jnp.where(sel, vals(4 + 4 * (f - 1)), ivf)
-                szf = jnp.where(sel, vals(5 + 4 * (f - 1)), szf)
-            gi = jnp.where(ind > 0, rhs * ivf + szf, 0.0)
-            track_s[:] = jnp.where(mask, ind.astype(F32), track_s[:])
-
-        dg = g_old - gi
-        dg_s[:] = jnp.where(mask, dg, dg_s[:])
-        wrow = W_ref[0, pl.ds(j, 1), :]
-        r_local[:] = r_local[:] + dg * wrow
-        return 0
-
-    jax.lax.fori_loop(0, B, body, 0)
-
-    dg_out_ref[0] = dg_s[:]
-    track_out_ref[0] = track_s[:]
-
-    delta = jax.lax.dot_general(
-        dg_s[:], Xb, (((1,), (1,)), ((), ())), preferred_element_type=F32
-    )
-    yadj_s[:] = yadj_s[:] + delta
-    u_s[:] = u_s[:] - delta
-
-    @pl.when(b == nblocks - 1)
-    def _():
-        yadj_out_ref[:] = yadj_s[:]
-        u_out_ref[:] = u_s[:]
-
-
-def supports_mc(spec: GibbsSpec, n: int, K: int, dtype, geno_itemsize=4) -> bool:
-    if dtype != jnp.float32 or spec.reject_guard or K < 2:
-        return False
-    R = 5 if spec.model_index in (3, 4) else (
-        3 + 4 * (spec.n_fold - 1) if spec.model_index == 6 else 4
-    )
-    vmem = (
-        n * spec.block * geno_itemsize * 2
-        + n * spec.block * 4
-        + spec.block * spec.block * 4 * 2
-        + K * n * 4 * 4
-        + R * K * spec.block * 4 * 2
-    )
-    return vmem < VMEM_BUDGET
-
-
-def sweep_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b,
-             g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
-             interpret=False):
-    """K-chain fused sweep.  Batched inputs carry a leading chain axis:
-    consts entries (K,)/(K,nf); per-SNP arrays (K, m_pad); yadj/u (K, n).
-    Returns the same tuple as `sweep` with a leading K axis."""
-    nblocks, n, B = X_blocks.shape
-    m_pad = nblocks * B
-    K = yadj_b.shape[0]
-    mi = spec.model_index
-
-    def pack_one(consts_k, vei, g, z, uu, chi, vargL):
-        c = dict(consts_k)
-        c["vargL_vec"] = vargL
-        return _pack_rows(spec, c, xpx, vx, vei, g, z, uu, chi)
-
-    P = jax.vmap(pack_one)(consts_b, vei_b, g_b, z_b, u_b, chi_b, vargL_b)
-    R = P.shape[1]  # (K, R, m_pad)
-    P_blocks = (
-        P.reshape(K, R, nblocks, B).transpose(2, 1, 0, 3).reshape(nblocks, R * K, B)
-    )
-    scal = jnp.stack([consts_b["logpi"][:, 0].astype(F32)])  # (1, K)
-
-    kern = functools.partial(_kernel_mc, spec, n, B, R, K)
-    full = lambda shape: pl.BlockSpec(shape, lambda b: tuple(0 for _ in shape),
-                                      memory_space=pltpu.VMEM)
-    out_shapes = (
-        jax.ShapeDtypeStruct((nblocks, K, B), F32),
-        jax.ShapeDtypeStruct((nblocks, K, B), F32),
-        jax.ShapeDtypeStruct((K, n), F32),
-        jax.ShapeDtypeStruct((K, n), F32),
-    )
-    dg, track_f, yadj_o, u_o = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, R * K, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, B, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            full((K, n)),
-            full((K, n)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, K, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, K, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            full((K, n)),
-            full((K, n)),
-        ),
-        out_shape=out_shapes,
-        scratch_shapes=[
-            pltpu.VMEM((K, n), F32),
-            pltpu.VMEM((K, n), F32),
-            pltpu.VMEM((K, B), F32),
-            pltpu.VMEM((K, B), F32),
-            pltpu.VMEM((K, B), F32),
-        ],
-        interpret=interpret,
-        compiler_params=None if interpret else _COMPILER_PARAMS,
-    )(
-        scal, P_blocks, X_blocks, W_blocks.astype(F32),
-        yadj_b.astype(F32), u_vec_b.astype(F32),
-    )
-
-    dg = dg.transpose(1, 0, 2).reshape(K, m_pad)
-    track = track_f.transpose(1, 0, 2).reshape(K, m_pad).astype(jnp.int32)
-    g_new = g_b.astype(F32) - dg
-
-    act = vx > 0
-    if mi == 4:
-        vargi_acc = jnp.sum(jnp.where(track == 1, g_new * g_new, 0.0), axis=1)
-    else:
-        vargi_acc = jnp.zeros((K,), F32)
-    if mi == 6:
-        ffold = jax.vmap(lambda f, t: f[t])(consts_b["fold"], track)
-        vargR_acc = jnp.sum(
-            jnp.where(track > 0, g_new * g_new / jnp.maximum(ffold, 1e-30), 0.0),
-            axis=1,
-        )
-    else:
-        vargR_acc = jnp.zeros((K,), F32)
-    if mi == 5:
-        lam2 = consts_b["lambda2"].astype(F32).reshape(K, 1)
-        lam = jnp.sqrt(lam2)
-        ve = vei_b.astype(F32)
-        znew = z2_b.astype(F32)
-        uu = u_b.astype(F32)
-        mu_ig = jnp.sqrt(ve) * lam / jnp.maximum(jnp.abs(g_new), 1e-30)
-        y2 = znew * znew
-        xig = mu_ig + 0.5 * mu_ig * mu_ig * y2 / lam2 - 0.5 * (mu_ig / lam2) * jnp.sqrt(
-            4.0 * mu_ig * lam2 * y2 + mu_ig * mu_ig * y2 * y2
-        )
-        ig = jnp.where(uu <= mu_ig / (mu_ig + xig), xig, mu_ig * mu_ig / xig)
-        vargi = 1.0 / ig
-        ok = (vargi > 0) if spec.vargl_strict_pos else (vargi >= 0)
-        vargL_new = jnp.where(act[None, :] & ok, vargi, vargL_b.astype(F32))
-    else:
-        vargL_new = vargL_b.astype(F32)
-
-    return (g_new, track, vargL_new, yadj_o, u_o, vargi_acc, vargR_acc)
+    if not guard_on(spec):
+        return P
+    return jnp.concatenate(
+        [P, _pack_retry_rows(spec, consts, xpx, vx, vei, z_retry)])
 
 
 def to_block_layout(P, nblocks, B):
-    """(K, R, m_pad) -> (nblocks, B, R, K) operand layout for the transposed
-    kernels, fenced with optimization_barriers so XLA cannot fuse the
-    minor-dim transpose with phase-A selects/RNG — that fusion degrades to a
-    ~370 ms/iter copy at m=500k on TPU (profiled; clean at power-of-2 m)."""
+    """(K, R, m_pad) packed rows -> (nblocks, B, R, Kp): the draw kernel's
+    operand layout, chains padded to whole tiles of CHAIN_TILE (padding
+    chains draw from all-zero rows: finite, never read)."""
     K, R = P.shape[0], P.shape[1]
-    P = jax.lax.optimization_barrier(P)
-    Pb = P.reshape(K, R, nblocks, B).transpose(2, 3, 1, 0)
-    return jax.lax.optimization_barrier(Pb)
+    Kp = -(-K // CHAIN_TILE) * CHAIN_TILE
+    if Kp != K:
+        P = jnp.pad(P, ((0, Kp - K), (0, 0), (0, 0)))
+    return P.reshape(Kp, R, nblocks, B).transpose(2, 3, 1, 0)
 
 
-def _draw_from_vals(spec: GibbsSpec, logpi0, vals, rhs):
-    """Shared draw body over packed coefficient values (scalar or (K,1))."""
+def _draw_from_vals(spec: GibbsSpec, vals, rhs):
+    """One draw over packed coefficient values vals(r) (any shape, e.g. a
+    chain tile) -> (gi, track or None)."""
     mi = spec.model_index
     nf = spec.n_fold
     if mi in (1, 2):
@@ -550,13 +215,10 @@ def _draw_from_vals(spec: GibbsSpec, logpi0, vals, rhs):
         gi = jnp.where(vals(2) > 0, gi, 0.0)
         return gi, None
     # BayesR: Gumbel-max fold selection — the Gumbel noise is already folded
-    # into the A rows by _pack_rows, so the fold draw is argmax_f(A_f+B_f q),
-    # with NO transcendentals (the old exp/normalise/cumsum inverse-CDF draw
-    # cost ~2.4x BayesCpi per draw).  The per-fold logits s_f and candidate
-    # draws gi_f are mutually independent FMAs (issue-parallel on the VPU);
-    # the argmax runs as a balanced tournament so the serial dependency
-    # depth is O(log nf), not O(nf) — this chain latency is THE cost of the
-    # sweep (everything else in the kernel is pipelined MXU/DMA work).
+    # into the A rows by _pack_rows, so the fold draw is argmax_f(A_f+B_f q)
+    # with no transcendentals.  The per-fold logits and candidate draws are
+    # independent FMAs; the argmax runs as a balanced tournament so the
+    # serial dependency depth is O(log nf).
     q = rhs * rhs
     cand = [(vals(2 + 4 * (nf - 1)) + 0.0 * rhs,       # s_0 (gumbel logit)
              jnp.zeros_like(rhs),                       # gi_0 = 0
@@ -579,520 +241,154 @@ def _draw_from_vals(spec: GibbsSpec, logpi0, vals, rhs):
     return gi, ind.astype(F32)
 
 
-# ---------------------------------------------------------------------------
-# transposed multi-chain sweep (v3): SNPs along SUBLANES, chains along LANES.
-# Every per-step quantity becomes a dynamic sublane row read — no masked lane
-# reductions — and the in-block residual update is one MXU outer product:
-#   r_local (B, K) += W[:, j] (B, 1) @ dg (1, K)
-# (W is symmetric so W[:, j] is read as row j).  Per sequential step:
-#   ~8 (1, K) VPU ops + one (B, K) MXU outer + one (B, K) add,
-# versus the (R*K, B) masked reduces of _kernel_mc.
-# ---------------------------------------------------------------------------
+def _guard_redraw(spec: GibbsSpec, vals, rhs, gi, track):
+    """Rejection guard on the packed retry rows: while gi^2 vx > vary, take
+    the next retry draw of the same conditional; zero after N_RETRY."""
+    mi, nf = spec.model_index, spec.n_fold
+    base = _guard_base(spec)
+    vary = jnp.float32(spec.vary)
+    vxj = vals(base)
+    on = track > 0
+    rej = (gi * gi * vxj > vary) & on
+    for r in range(N_RETRY):
+        if mi == 4:
+            cand = rhs * vals(2) + vals(base + 1 + r)
+        else:
+            cand = jnp.zeros_like(gi)
+            for f in range(1, nf):
+                cf = (rhs * vals(4 + 4 * (f - 1))
+                      + vals(base + 1 + r * (nf - 1) + (f - 1)))
+                cand = jnp.where(track == f, cf, cand)
+        gi = jnp.where(rej, cand, gi)
+        rej = (gi * gi * vxj > vary) & on
+    return jnp.where(rej, 0.0, gi)
 
 
-_MICROBLOCK = 8
+def _draws_kernel(spec: GibbsSpec, B: int, P_ref, W_ref, r0_ref,
+                  dg_ref, track_ref):
+    """B sequential draws for one tile of chains.  P (B, R, Kt), W (B, B),
+    r0 (B, Kt) -> dg = g_old - g_new (B, Kt), track (B, Kt).
 
+    Two loops, each body traced once (a fully unrolled body makes the Triton
+    compile take minutes): micro-blocks of MICRO draws, and the draws of a
+    micro-block, which see earlier micro-blocks through one full-f32 product
+    and their own micro-block through a (MICRO, Kt) reduction."""
+    S, Kt = MICRO, CHAIN_TILE
+    R = P_ref.shape[1]
+    guard = guard_on(spec)
+    rows_s = jax.lax.broadcasted_iota(jnp.int32, (S, Kt), 0)
+    # one-hot (B, S) embedding of a micro-block's rows into the block
+    embed_r = jax.lax.broadcasted_iota(jnp.int32, (B, S), 0)
+    embed_c = jax.lax.broadcasted_iota(jnp.int32, (B, S), 1)
+    dot = functools.partial(jax.lax.dot_general,
+                            dimension_numbers=(((1,), (0,)), ((), ())),
+                            precision=HIGHEST, preferred_element_type=F32)
 
-def _unrolled_draws(spec: GibbsSpec, B: int, K: int, logpi0,
-                    P_ref, W_ref, r_local, dg_s, track_s,
-                    wslice=None, wscal=None, post_draw=None):
-    """Fully unrolled (static slices), micro-blocked zero-tail correction:
-    rows >= j of dg_s are still zero, so at each micro-block start ONE MXU
-    matvec W[j0:j0+S, :] @ dg_s folds in every earlier draw's contribution;
-    within the micro-block the few i<j terms are register-carried
-    scalar-broadcast multiply-adds, keeping the sequential dependency chain
-    at VREG level instead of VMEM/MXU round-trips per draw.
+    def micro(i, dg_all):
+        j0 = pl.multiple_of(i * S, S)
+        # every earlier draw's contribution (rows >= j0 of dg_all are zero)
+        base = r0_ref[pl.ds(j0, S), :] + dot(W_ref[pl.ds(j0, S), :], dg_all)
 
-    wslice(j0, S) -> (S, B) Gram rows and wscal(j, i) -> scalar W[j, i]
-    default to reading W_ref directly; the summary kernel passes accessors
-    that scale the LD diagonal block by n on the fly.  post_draw(vals, rhs,
-    gi, track) -> gi lets callers apply the SBayesS rejection guard on (1,K)
-    rows before the draw is committed."""
-    if wslice is None:
-        wslice = lambda j0, S: W_ref[0, pl.ds(j0, S), :]
-    if wscal is None:
-        wscal = lambda j, i: W_ref[0, j, i]
-    S = _MICROBLOCK
-    for j0 in range(0, B, S):
-        Wblk = wslice(j0, S)                    # (S, B) static slice
-        corr_blk = jax.lax.dot_general(
-            Wblk, dg_s[:], (((1,), (0,)), ((), ())), preferred_element_type=F32
-        )                                       # (S, K); rows >= j0 of dg_s are 0
-        carried = []
-        for t in range(S):
+        def load(j):
+            return tuple(P_ref[j, r, :] for r in range(R))
+
+        def draw(t, carry):
+            dg_mb, tr_mb, cur = carry
             j = j0 + t
-            prow = P_ref[0, j]                  # (R, K)
+            # the next draw's rows load one step ahead: only rhs is serial
+            nxt = load(jnp.minimum(j + 1, B - 1))
 
-            def vals(r, prow=prow):
-                return prow[r, :].reshape(1, K)
+            def vals(r):
+                return cur[r]
 
-            rhs = r_local[j, :].reshape(1, K) + corr_blk[t, :].reshape(1, K) + vals(0)
-            for i, dgi in enumerate(carried):
-                rhs = rhs + wscal(j, j0 + i) * dgi
-            gi, track = _draw_from_vals(spec, logpi0, vals, rhs)
-            if post_draw is not None:
-                gi = post_draw(vals, rhs, gi, track)
-            dg = vals(1) - gi                   # (1, K)
-            dg_s[j, :] = dg.reshape(K)
+            sel = rows_s == t
+            w_mb = W_ref[j, pl.ds(j0, S)]              # in-micro-block Gram row
+            rhs = (jnp.sum(jnp.where(sel, base, 0.0), axis=0)
+                   + jnp.sum(w_mb[:, None] * dg_mb, axis=0) + vals(0))
+            gi, track = _draw_from_vals(spec, vals, rhs)
+            if guard:
+                gi = _guard_redraw(spec, vals, rhs, gi, track)
+            dg_mb = jnp.where(sel, (vals(1) - gi)[None, :], dg_mb)
             if track is not None:
-                track_s[j, :] = track.reshape(K)
-            carried.append(dg)
+                tr_mb = jnp.where(sel, track[None, :], tr_mb)
+            return dg_mb, tr_mb, nxt
+
+        zeros = jnp.zeros((S, Kt), F32)
+        dg_mb, tr_mb, _ = jax.lax.fori_loop(0, S, draw, (zeros, zeros, load(j0)))
+        dg_ref[pl.ds(j0, S), :] = dg_mb
+        track_ref[pl.ds(j0, S), :] = tr_mb
+        onehot = (embed_r == j0 + embed_c).astype(F32)
+        return dg_all + dot(onehot, dg_mb)
+
+    jax.lax.fori_loop(0, B // S, micro, jnp.zeros((B, Kt), F32))
 
 
-def _kernel_mc_t(spec: GibbsSpec, n: int, B: int, R: int, K: int,
-                 logpi_ref, P_ref, X_ref, W_ref, yadj_in_ref, u_in_ref,
-                 dg_out_ref, track_out_ref, yadj_out_ref, u_out_ref,
-                 r_local, dg_s, track_s):
-    b = pl.program_id(0)
+def draws_supported(spec: GibbsSpec, dtype) -> bool:
+    """Whether `block_draws` covers this configuration (else: XLA scan)."""
+    B = spec.block
+    return dtype == F32 and B >= MICRO and B & (B - 1) == 0
 
-    # yadj/u live in the (constant-index-map) output buffers across blocks
-    @pl.when(b == 0)
-    def _():
-        yadj_out_ref[:] = yadj_in_ref[:]
-        u_out_ref[:] = u_in_ref[:]
 
-    Xb = X_ref[0].astype(F32)       # (n, B)
-    logpi0 = logpi_ref[:]           # (1, K)
+def block_draws(spec: GibbsSpec, P_b, W, r0):
+    """(dg, track) of one block's B sequential draws for K chains.
+    P_b (B, R, Kp) from `to_block_layout`; W (B, B) Gram block; r0 (B, K)."""
+    B, R, Kp = P_b.shape
+    K = r0.shape[1]
+    if Kp != K:
+        r0 = jnp.pad(r0, ((0, 0), (0, Kp - K)))
+    interp = runtime.interpret()
+    tile = pl.BlockSpec((B, CHAIN_TILE), lambda c: (0, c))
+    dg, track = pl.pallas_call(
+        functools.partial(_draws_kernel, spec, B),
+        grid=(Kp // CHAIN_TILE,),
+        in_specs=[pl.BlockSpec((B, R, CHAIN_TILE), lambda c: (0, 0, c)),
+                  pl.BlockSpec((B, B), lambda c: (0, 0)), tile],
+        out_specs=(tile, tile),
+        out_shape=(jax.ShapeDtypeStruct((B, Kp), F32),
+                   jax.ShapeDtypeStruct((B, Kp), F32)),
+        backend="triton",
+        interpret=interp,
+        compiler_params=(None if interp else pl_triton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1)),
+        name="block_draws",
+    )(P_b.astype(F32), W.astype(F32), r0.astype(F32))
+    return dg[:, :K], track[:, :K]
 
-    # r0 = X_b' yadj' : (n, B)^T contracted with (K, n) -> (B, K)
-    r_local[:] = jax.lax.dot_general(
-        Xb, yadj_out_ref[:], (((0,), (1,)), ((), ())), preferred_element_type=F32
+
+def sweep_s_segment_t(spec: GibbsSpec, LD_seg, r_seg_kb, P_seg_blocks, n: int):
+    """K-chain sweep of one padded LD segment: the XLA scan over blocks owns
+    the (K, mc) r_hat state (rank-B updates as one product per block,
+    SBayesD.cpp:264-267); the per-block kernel runs the B sequential draws.
+
+    LD_seg (mc, mc); r_seg_kb (K, mc); P_seg_blocks (nblocks, B, R, Kp).
+    Returns (dg (K, mc), track (K, mc), r_seg_new (K, mc))."""
+    mc = LD_seg.shape[0]
+    B = spec.block
+    nblocks = mc // B
+    K = r_seg_kb.shape[0]
+    LD32 = LD_seg.astype(F32)
+    nf32 = jnp.float32(n)
+
+    def body(r_seg, xs):
+        b, P_b = xs
+        Wn = jax.lax.dynamic_slice(LD32, (b * B, b * B), (B, B)) * nf32
+        r0 = jax.lax.dynamic_slice(r_seg, (0, b * B), (K, B)).T  # (B, K)
+        dg, track = block_draws(spec, P_b, Wn, r0)
+        cols = jax.lax.dynamic_slice(LD32, (0, b * B), (mc, B))  # (mc, B)
+        upd = jax.lax.dot_general(
+            dg, cols, (((0,), (1,)), ((), ())),
+            preferred_element_type=F32, precision=HIGHEST,
+        )                                                         # (K, mc)
+        return r_seg + nf32 * upd, (dg, track)
+
+    r_new, (dgs, tracks) = jax.lax.scan(
+        body, r_seg_kb.astype(F32),
+        (jnp.arange(nblocks), P_seg_blocks),
     )
-    dg_s[:] = jnp.zeros((B, K), F32)
-    track_s[:] = jnp.zeros((B, K), F32)
-
-    _unrolled_draws(spec, B, K, logpi0, P_ref, W_ref, r_local, dg_s, track_s)
-
-    dg_out_ref[0] = dg_s[:]
-    track_out_ref[0] = track_s[:]
-
-    # delta (K, n) = dg' X_b' : contract the B axis
-    delta = jax.lax.dot_general(
-        dg_s[:], Xb, (((0,), (1,)), ((), ())), preferred_element_type=F32
-    )
-    yadj_out_ref[:] = yadj_out_ref[:] + delta
-    u_out_ref[:] = u_out_ref[:] - delta
-
-
-def supports_mc_t(spec: GibbsSpec, n: int, K: int, dtype, geno_itemsize=4) -> bool:
-    if dtype != jnp.float32 or spec.reject_guard or K < 1:
-        return False
-    R = 5 if spec.model_index in (3, 4) else (
-        3 + 4 * (spec.n_fold - 1) if spec.model_index == 6 else 4
-    )
-    R_pad = ((R + 7) // 8) * 8
-    vmem = (
-        n * spec.block * geno_itemsize * 2      # double-buffered X block
-        + n * spec.block * 4                    # f32 cast temp
-        + spec.block * spec.block * 4 * 2       # W
-        + K * n * 4 * 4                         # yadj/u in + out (resident)
-        + spec.block * R_pad * K * 4 * 2        # P blocks
-        + spec.block * K * 4 * 3                # r_local/dg/track scratch
-    )
-    return vmem < VMEM_BUDGET
-
-
-def sweep_mc_t(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b,
-               g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
-               interpret=False, block_range=None):
-    """Transposed K-chain fused sweep; same inputs/outputs as `sweep_mc`.
-
-    block_range=(off, nbg): sweep only blocks [off, off+nbg) of X/W while the
-    per-SNP rows (xpx/vx/g/z/... ) are already the LOCAL slice — the grid's
-    index_map reads the X/W region straight out of the full HBM buffer, so
-    group sweeps (concurrent-shard emulation) cost zero genotype copies."""
-    nb_tot, n, B = X_blocks.shape
-    off, nblocks = block_range if block_range is not None else (0, nb_tot)
-    m_pad = nblocks * B
-    K = yadj_b.shape[0]
-    mi = spec.model_index
-
-    def pack_one(consts_k, vei, g, z, uu, chi, vargL):
-        c = dict(consts_k)
-        c["vargL_vec"] = vargL
-        return _pack_rows(spec, c, xpx, vx, vei, g, z, uu, chi)
-
-    P = jax.vmap(pack_one)(consts_b, vei_b, g_b, z_b, u_b, chi_b, vargL_b)
-    R = P.shape[1]  # (K, R, m_pad)
-    # (K, R, m_pad) -> (nblocks, B, R, K): SNP j of block b is one (R, K) tile
-    P_blocks = to_block_layout(P, nblocks, B)
-    logpi_row = consts_b["logpi"][:, 0].astype(F32).reshape(1, K)
-
-    kern = functools.partial(_kernel_mc_t, spec, n, B, R, K)
-    full = lambda shape: pl.BlockSpec(shape, lambda b: tuple(0 for _ in shape),
-                                      memory_space=pltpu.VMEM)
-    out_shapes = (
-        jax.ShapeDtypeStruct((nblocks, B, K), F32),
-        jax.ShapeDtypeStruct((nblocks, B, K), F32),
-        jax.ShapeDtypeStruct((K, n), F32),
-        jax.ShapeDtypeStruct((K, n), F32),
-    )
-    dg, track_f, yadj_o, u_o = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[
-            full((1, K)),                                                          # logpi0
-            pl.BlockSpec((1, B, R, K), lambda b: (b, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n, B), lambda b: (b + off, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, B, B), lambda b: (b + off, 0, 0), memory_space=pltpu.VMEM),
-            full((K, n)),
-            full((K, n)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, B, K), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, B, K), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            full((K, n)),
-            full((K, n)),
-        ),
-        out_shape=out_shapes,
-        scratch_shapes=[
-            pltpu.VMEM((B, K), F32),    # r_local
-            pltpu.VMEM((B, K), F32),    # dg_s
-            pltpu.VMEM((B, K), F32),    # track_s
-        ],
-        interpret=interpret,
-        compiler_params=None if interpret else _COMPILER_PARAMS,
-    )(
-        logpi_row, P_blocks, X_blocks, W_blocks.astype(F32),
-        yadj_b.astype(F32), u_vec_b.astype(F32),
-    )
-
-    dg = dg.transpose(2, 0, 1).reshape(K, m_pad)
-    track = track_f.transpose(2, 0, 1).reshape(K, m_pad).astype(jnp.int32)
-    g_new = g_b.astype(F32) - dg
-    return _phase_c_mc(spec, consts_b, vx, vei_b, g_new, track, u_b, z2_b,
-                       vargL_b, yadj_o, u_o)
-
-
-# ---------------------------------------------------------------------------
-# int8-resident transposed multi-chain sweep: the X block lives in VMEM in
-# its STORAGE dtype (int8: 4x the n-reach of the f32-cast variant) and is
-# cast to f32 in (C, B) chunks inside the kernel — the grid's automatic
-# double-buffering then overlaps the next block's X DMA with the current
-# block's sequential draws, and X crosses HBM exactly ONCE per iteration
-# (the chunked-DMA variant below reads it twice: r0 pass + delta pass).
-# ---------------------------------------------------------------------------
-
-
-def _kernel_mc_ti(spec: GibbsSpec, n: int, B: int, R: int, K: int, C: int,
-                  logpi_ref, P_ref, X_ref, W_ref, yadj_in_ref, u_in_ref,
-                  dg_out_ref, track_out_ref, yadj_out_ref, u_out_ref,
-                  r_local, dg_s, track_s, xf32):
-    b = pl.program_id(0)
-    nchunks = n // C
-
-    @pl.when(b == 0)
-    def _():
-        yadj_out_ref[:] = yadj_in_ref[:]
-        u_out_ref[:] = u_in_ref[:]
-
-    logpi0 = logpi_ref[:]           # (1, K)
-
-    # pass 1: r0 = X_b' yadj' accumulated over chunked casts (VMEM-local)
-    r_local[:] = jnp.zeros((B, K), F32)
-
-    def p1(c, _):
-        xf32[:] = X_ref[0, pl.ds(c * C, C), :].astype(F32)
-        ya = yadj_out_ref[:, pl.ds(c * C, C)]                 # (K, C)
-        r_local[:] = r_local[:] + jax.lax.dot_general(
-            xf32[:], ya, (((0,), (1,)), ((), ())), preferred_element_type=F32
-        )
-        return 0
-
-    jax.lax.fori_loop(0, nchunks, p1, 0)
-
-    dg_s[:] = jnp.zeros((B, K), F32)
-    track_s[:] = jnp.zeros((B, K), F32)
-    _unrolled_draws(spec, B, K, logpi0, P_ref, W_ref, r_local, dg_s, track_s)
-    dg_out_ref[0] = dg_s[:]
-    track_out_ref[0] = track_s[:]
-
-    # pass 2: yadj += dg' X_b'; u -= (chunked casts again — VMEM reads only)
-    def p2(c, _):
-        xf32[:] = X_ref[0, pl.ds(c * C, C), :].astype(F32)
-        delta = jax.lax.dot_general(
-            dg_s[:], xf32[:], (((0,), (1,)), ((), ())),
-            preferred_element_type=F32,
-        )                                                     # (K, C)
-        yadj_out_ref[:, pl.ds(c * C, C)] = yadj_out_ref[:, pl.ds(c * C, C)] + delta
-        u_out_ref[:, pl.ds(c * C, C)] = u_out_ref[:, pl.ds(c * C, C)] - delta
-        return 0
-
-    jax.lax.fori_loop(0, nchunks, p2, 0)
-
-
-def supports_mc_ti(spec: GibbsSpec, n: int, K: int, dtype, geno_itemsize=4) -> bool:
-    if dtype != jnp.float32 or spec.reject_guard or K < 1:
-        return False
-    C = min(_pick_chunk(n) or n, n)
-    if C == 0 or n % C != 0:
-        return False
-    R = 5 if spec.model_index in (3, 4) else (
-        3 + 4 * (spec.n_fold - 1) if spec.model_index == 6 else 4
-    )
-    R_pad = ((R + 7) // 8) * 8
-    vmem = (
-        n * spec.block * geno_itemsize * 2      # double-buffered X block (storage dtype)
-        + C * spec.block * 4                    # chunk cast temp
-        + spec.block * spec.block * 4 * 2       # W
-        + K * n * 4 * 4                         # yadj/u in + out (resident)
-        + spec.block * R_pad * K * 4 * 2        # P blocks
-        + spec.block * K * 4 * 3                # r_local/dg/track
-    )
-    return vmem < VMEM_BUDGET
-
-
-def sweep_mc_ti(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b,
-                g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
-                interpret=False, block_range=None):
-    """int8-resident transposed K-chain sweep; same contract as `sweep_mc_t`
-    (including zero-copy ``block_range`` group sweeps)."""
-    nb_tot, n, B = X_blocks.shape
-    off, nblocks = block_range if block_range is not None else (0, nb_tot)
-    m_pad = nblocks * B
-    K = yadj_b.shape[0]
-    C = min(_pick_chunk(n) or n, n)
-
-    def pack_one(consts_k, vei, g, z, uu, chi, vargL):
-        c = dict(consts_k)
-        c["vargL_vec"] = vargL
-        return _pack_rows(spec, c, xpx, vx, vei, g, z, uu, chi)
-
-    P = jax.vmap(pack_one)(consts_b, vei_b, g_b, z_b, u_b, chi_b, vargL_b)
-    R = P.shape[1]
-    P_blocks = to_block_layout(P, nblocks, B)
-    logpi_row = consts_b["logpi"][:, 0].astype(F32).reshape(1, K)
-
-    kern = functools.partial(_kernel_mc_ti, spec, n, B, R, K, C)
-    full = lambda shape: pl.BlockSpec(shape, lambda b: tuple(0 for _ in shape),
-                                      memory_space=pltpu.VMEM)
-    dg, track_f, yadj_o, u_o = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[
-            full((1, K)),
-            pl.BlockSpec((1, B, R, K), lambda b: (b, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n, B), lambda b: (b + off, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, B, B), lambda b: (b + off, 0, 0), memory_space=pltpu.VMEM),
-            full((K, n)),
-            full((K, n)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, B, K), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, B, K), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            full((K, n)),
-            full((K, n)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((nblocks, B, K), F32),
-            jax.ShapeDtypeStruct((nblocks, B, K), F32),
-            jax.ShapeDtypeStruct((K, n), F32),
-            jax.ShapeDtypeStruct((K, n), F32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((B, K), F32),
-            pltpu.VMEM((B, K), F32),
-            pltpu.VMEM((B, K), F32),
-            pltpu.VMEM((C, B), F32),
-        ],
-        interpret=interpret,
-        compiler_params=None if interpret else _COMPILER_PARAMS,
-    )(
-        logpi_row, P_blocks, X_blocks, W_blocks.astype(F32),
-        yadj_b.astype(F32), u_vec_b.astype(F32),
-    )
-
-    dg = dg.transpose(2, 0, 1).reshape(K, m_pad)
-    track = track_f.transpose(2, 0, 1).reshape(K, m_pad).astype(jnp.int32)
-    g_new = g_b.astype(F32) - dg
-    return _phase_c_mc(spec, consts_b, vx, vei_b, g_new, track, u_b, z2_b,
-                       vargL_b, yadj_o, u_o)
-
-
-# ---------------------------------------------------------------------------
-# chunked-n transposed multi-chain sweep: X stays in HBM and streams through
-# VMEM in double-buffered (C, B) chunks — lifts the "X block fits VMEM" limit
-# so large-n cohorts (the 50k x 500k target) keep the fused-kernel speed
-# ---------------------------------------------------------------------------
-
-MC_CHUNK_N = 2048
-
-
-def _pick_chunk(n: int) -> int:
-    """Largest divisor of n that is <= MC_CHUNK_N and a multiple of 128;
-    0 if none >= 512 exists.  128 (not 8): the chunked kernels slice the
-    LANE dimension of the (K, n) residual rows at dynamic offsets c*C, and
-    Mosaic requires lane offsets provably divisible by 128 — a multiple-of-8
-    chunk (e.g. C=2000 at n=50,000) fails TPU compilation.  Cohorts whose n
-    has no such divisor are row-padded by prepare_gibbs_data."""
-    best = 0
-    c = 128
-    while c <= MC_CHUNK_N:
-        if n % c == 0:
-            best = c
-        c += 128
-    return best if best >= 512 else 0
-
-
-def _kernel_mc_tc(spec: GibbsSpec, n: int, B: int, R: int, K: int, C: int,
-                  off: int,
-                  logpi_ref, P_ref, X_hbm, W_ref, yadj_in_ref, u_in_ref,
-                  dg_out_ref, track_out_ref, yadj_out_ref, u_out_ref,
-                  r_local, dg_s, track_s, xbuf, sem):
-    b = pl.program_id(0)
-    bx = b + off                    # block row in the FULL X buffer
-    nchunks = n // C
-
-    @pl.when(b == 0)
-    def _():
-        yadj_out_ref[:] = yadj_in_ref[:]
-        u_out_ref[:] = u_in_ref[:]
-
-    logpi0 = logpi_ref[:]           # (1, K)
-
-    def chunk_dma(slot, c):
-        return pltpu.make_async_copy(
-            X_hbm.at[bx, pl.ds(c * C, C), :], xbuf.at[slot], sem.at[slot]
-        )
-
-    # ---- pass 1: r0 = sum_c X[c]' yadj[:, c]' ----
-    chunk_dma(0, 0).start()
-    r_local[:] = jnp.zeros((B, K), F32)
-
-    def p1(c, _):
-        slot = c % 2
-
-        @pl.when(c + 1 < nchunks)
-        def _():
-            chunk_dma((c + 1) % 2, c + 1).start()
-
-        chunk_dma(slot, c).wait()
-        Xc = xbuf[slot].astype(F32)                 # (C, B)
-        ya = yadj_out_ref[:, pl.ds(c * C, C)]       # (K, C)
-        r_local[:] = r_local[:] + jax.lax.dot_general(
-            Xc, ya, (((0,), (1,)), ((), ())), preferred_element_type=F32
-        )
-        return 0
-
-    jax.lax.fori_loop(0, nchunks, p1, 0)
-
-    # ---- sequential draws ----
-    dg_s[:] = jnp.zeros((B, K), F32)
-    track_s[:] = jnp.zeros((B, K), F32)
-    _unrolled_draws(spec, B, K, logpi0, P_ref, W_ref, r_local, dg_s, track_s)
-    dg_out_ref[0] = dg_s[:]
-    track_out_ref[0] = track_s[:]
-
-    # ---- pass 2: yadj[:, c] += dg' X[c]' ; u[:, c] -= ----
-    chunk_dma(0, 0).start()
-
-    def p2(c, _):
-        slot = c % 2
-
-        @pl.when(c + 1 < nchunks)
-        def _():
-            chunk_dma((c + 1) % 2, c + 1).start()
-
-        chunk_dma(slot, c).wait()
-        Xc = xbuf[slot].astype(F32)                 # (C, B)
-        delta = jax.lax.dot_general(
-            dg_s[:], Xc, (((0,), (1,)), ((), ())), preferred_element_type=F32
-        )                                           # (K, C)
-        yadj_out_ref[:, pl.ds(c * C, C)] = yadj_out_ref[:, pl.ds(c * C, C)] + delta
-        u_out_ref[:, pl.ds(c * C, C)] = u_out_ref[:, pl.ds(c * C, C)] - delta
-        return 0
-
-    jax.lax.fori_loop(0, nchunks, p2, 0)
-
-
-def supports_mc_tc(spec: GibbsSpec, n: int, K: int, dtype, geno_itemsize=4) -> bool:
-    if dtype != jnp.float32 or spec.reject_guard or K < 1:
-        return False
-    C = _pick_chunk(n)
-    if C == 0 or n <= C:
-        return False
-    R = 5 if spec.model_index in (3, 4) else (
-        3 + 4 * (spec.n_fold - 1) if spec.model_index == 6 else 4
-    )
-    R_pad = ((R + 7) // 8) * 8
-    vmem = (
-        2 * C * spec.block * geno_itemsize      # double-buffered X chunks
-        + C * spec.block * 4                    # f32 cast temp
-        + spec.block * spec.block * 4 * 2       # W
-        + K * n * 4 * 4                         # yadj/u in + out (resident)
-        + spec.block * R_pad * K * 4 * 2        # P blocks
-        + spec.block * K * 4 * 3                # r_local/dg/track
-    )
-    return vmem < VMEM_BUDGET
-
-
-def sweep_mc_tc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b,
-                g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
-                interpret=False, block_range=None):
-    """Chunked-n transposed K-chain sweep; X stays in HBM.  Supports the
-    zero-copy ``block_range`` contract of `sweep_mc_t` (the kernel's manual
-    DMA reads blocks [off, off+nbg) of the full HBM buffer directly)."""
-    nb_tot, n, B = X_blocks.shape
-    off, nblocks = block_range if block_range is not None else (0, nb_tot)
-    m_pad = nblocks * B
-    K = yadj_b.shape[0]
-    C = _pick_chunk(n)
-
-    def pack_one(consts_k, vei, g, z, uu, chi, vargL):
-        c = dict(consts_k)
-        c["vargL_vec"] = vargL
-        return _pack_rows(spec, c, xpx, vx, vei, g, z, uu, chi)
-
-    P = jax.vmap(pack_one)(consts_b, vei_b, g_b, z_b, u_b, chi_b, vargL_b)
-    R = P.shape[1]
-    P_blocks = to_block_layout(P, nblocks, B)
-    logpi_row = consts_b["logpi"][:, 0].astype(F32).reshape(1, K)
-
-    kern = functools.partial(_kernel_mc_tc, spec, n, B, R, K, C, off)
-    full = lambda shape: pl.BlockSpec(shape, lambda b: tuple(0 for _ in shape),
-                                      memory_space=pltpu.VMEM)
-    dg, track_f, yadj_o, u_o = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[
-            full((1, K)),
-            pl.BlockSpec((1, B, R, K), lambda b: (b, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),                                # X in HBM
-            pl.BlockSpec((1, B, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            full((K, n)),
-            full((K, n)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, B, K), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, B, K), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            full((K, n)),
-            full((K, n)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((nblocks, B, K), F32),
-            jax.ShapeDtypeStruct((nblocks, B, K), F32),
-            jax.ShapeDtypeStruct((K, n), F32),
-            jax.ShapeDtypeStruct((K, n), F32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((B, K), F32),
-            pltpu.VMEM((B, K), F32),
-            pltpu.VMEM((B, K), F32),
-            pltpu.VMEM((2, C, B), X_blocks.dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        interpret=interpret,
-        compiler_params=None if interpret else _COMPILER_PARAMS,
-    )(
-        logpi_row, P_blocks, X_blocks, W_blocks.astype(F32),
-        yadj_b.astype(F32), u_vec_b.astype(F32),
-    )
-
-    dg = dg.transpose(2, 0, 1).reshape(K, m_pad)
-    track = track_f.transpose(2, 0, 1).reshape(K, m_pad).astype(jnp.int32)
-    g_new = g_b.astype(F32) - dg
-    return _phase_c_mc(spec, consts_b, vx, vei_b, g_new, track, u_b, z2_b,
-                       vargL_b, yadj_o, u_o)
+    # (nblocks, B, K) -> (K, mc)
+    dg = dgs.transpose(2, 0, 1).reshape(K, mc)
+    track = tracks.transpose(2, 0, 1).reshape(K, mc).astype(jnp.int32)
+    return dg, track, r_new
 
 
 def _phase_c_mc(spec, consts_b, vx, vei_b, g_new, track, u_b, z2_b, vargL_b,
@@ -1134,718 +430,58 @@ def _phase_c_mc(spec, consts_b, vx, vei_b, g_new, track, u_b, z2_b, vargL_b,
 
 
 # ---------------------------------------------------------------------------
-# summary-level fused sweep: one LD segment (chromosome), r_hat as the state
-# ---------------------------------------------------------------------------
-
-
-def _kernel_s(spec: GibbsSpec, mc: int, B: int, R: int, n: int,
-              scal_ref, P_ref, LD_ref, r_in_ref,
-              dg_out_ref, track_out_ref, r_out_ref,
-              r_seg_s, r_local, dg_s, track_s):
-    """Per-segment summary sweep: r_local starts as the r_hat block slice;
-    the in-block Gram rows are n * LD[block, block] read from the segment's
-    column block; post-block update r_seg += n * LD[:, block] @ dg
-    (SBayesD.cpp:264-267 as one matmul)."""
-    b = pl.program_id(0)
-    nblocks = pl.num_programs(0)
-
-    @pl.when(b == 0)
-    def _():
-        r_seg_s[:] = r_in_ref[:]
-
-    P = P_ref[0]   # (R, B)
-    nf32 = jnp.float32(n)
-
-    r_local[:] = r_seg_s[0, pl.ds(b * B, B)].reshape(1, B)
-    dg_s[:] = jnp.zeros((1, B), F32)
-    track_s[:] = jnp.zeros((1, B), F32)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, B), 1)
-    logpi0 = scal_ref[0]
-
-    def body(j, _):
-        mask = lane == j
-        red = jnp.sum(jnp.where(mask, P, 0.0), axis=1)
-        vals = lambda r: red[r]
-        rj = jnp.sum(jnp.where(mask, r_local[:], 0.0))
-        rhs = rj + red[0]
-        gi, track = _draw_from_vals(spec, logpi0, vals, rhs)
-        dg = red[1] - gi
-        dg_s[:] = jnp.where(mask, dg, dg_s[:])
-        if track is not None:
-            track_s[:] = jnp.where(mask, track, track_s[:])
-        # Gram row: n * LD[b*B + j, block] from the segment's column block
-        wrow = LD_ref[0, pl.ds(b * B + j, 1), :].astype(F32)
-        r_local[:] = r_local[:] + dg * nf32 * wrow
-        return 0
-
-    jax.lax.fori_loop(0, B, body, 0)
-
-    dg_out_ref[0] = dg_s[:]
-    track_out_ref[0] = track_s[:]
-
-    # r_seg += n * LD[:, block] @ dg
-    cols = LD_ref[0].astype(F32)   # (mc, B)
-    upd = jax.lax.dot_general(
-        dg_s[:], cols, (((1,), (1,)), ((), ())), preferred_element_type=F32
-    )                              # (1, mc)
-    r_seg_s[:] = r_seg_s[:] + nf32 * upd
-
-    @pl.when(b == nblocks - 1)
-    def _():
-        r_out_ref[:] = r_seg_s[:]
-
-
-def supports_s(spec: GibbsSpec, seg_sizes, dtype) -> bool:
-    if dtype != jnp.float32 or spec.reject_guard:
-        return False
-    mc_max = max(seg_sizes) if seg_sizes else 0
-    vmem = mc_max * spec.block * 4 * 2 + mc_max * 4 * 2
-    return vmem < VMEM_BUDGET
-
-
-def sweep_s_segment(spec: GibbsSpec, consts, LD_seg, r_seg, P_seg_blocks,
-                    n: int, interpret=False):
-    """Sweep one padded LD segment.  LD_seg (mc, mc); r_seg (mc,);
-    P_seg_blocks (nblocks, R, B) packed coefficient rows for this segment.
-    Returns (dg (mc,), track (mc,), r_seg_new (mc,))."""
-    mc = LD_seg.shape[0]
-    B = spec.block
-    nblocks = mc // B
-    R = P_seg_blocks.shape[1]
-    scal = jnp.stack([consts["logpi"][0].astype(F32)])
-
-    kern = functools.partial(_kernel_s, spec, mc, B, R, n)
-    full = lambda shape: pl.BlockSpec(shape, lambda b: tuple(0 for _ in shape),
-                                      memory_space=pltpu.VMEM)
-    dg, track_f, r_new = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, R, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, mc, B), lambda b: (0, 0, b), memory_space=pltpu.VMEM),
-            full((1, mc)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, 1, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            full((1, mc)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((nblocks, 1, B), F32),
-            jax.ShapeDtypeStruct((nblocks, 1, B), F32),
-            jax.ShapeDtypeStruct((1, mc), F32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((1, mc), F32),
-            pltpu.VMEM((1, B), F32),
-            pltpu.VMEM((1, B), F32),
-            pltpu.VMEM((1, B), F32),
-        ],
-        interpret=interpret,
-        compiler_params=None if interpret else _COMPILER_PARAMS,
-    )(
-        scal,
-        P_seg_blocks,
-        LD_seg.astype(F32).reshape(1, mc, mc),
-        r_seg.astype(F32).reshape(1, mc),
-    )
-    return dg.reshape(mc), track_f.reshape(mc).astype(jnp.int32), r_new.reshape(mc)
-
-
-# ---------------------------------------------------------------------------
-# transposed multi-chain summary-segment sweep: r_hat state as (mc, K) with
-# chains on lanes; same unrolled zero-tail draws as the individual kernel,
-# the Gram rows read on the fly from the LD column block scaled by n
-# ---------------------------------------------------------------------------
-
-
-def _kernel_s_block_t(spec: GibbsSpec, B: int, R: int, K: int,
-                      logpi_ref, P_ref, W_ref, r0_ref,
-                      dg_out_ref, track_out_ref, r_local, dg_s, track_s):
-    """One block of B sequential draws for K chains (chains on lanes).  The
-    (K, mc) r_hat state lives OUTSIDE in XLA (a (mc, K) VMEM-resident state
-    would pad the K lanes to 128 and blow VMEM for chromosome-sized
-    segments); this kernel only ever holds (B, *) tiles."""
-    logpi0 = logpi_ref[:]
-    r_local[:] = r0_ref[:]
-    dg_s[:] = jnp.zeros((B, K), F32)
-    track_s[:] = jnp.zeros((B, K), F32)
-    _unrolled_draws(spec, B, K, logpi0, P_ref, W_ref, r_local, dg_s, track_s)
-    dg_out_ref[:] = dg_s[:]
-    track_out_ref[:] = track_s[:]
-
-
-def supports_s_t(spec: GibbsSpec, seg_sizes, K: int, dtype) -> bool:
-    if dtype != jnp.float32 or spec.reject_guard or K < 1:
-        return False
-    if not seg_sizes:
-        return False
-    # per-block kernel holds only (B, *) tiles with the K lanes padded to 128
-    R = 5 if spec.model_index in (3, 4) else (
-        3 + 4 * (spec.n_fold - 1) if spec.model_index == 6 else 4
-    )
-    R_pad = ((R + 7) // 8) * 8
-    K_lane = ((K + 127) // 128) * 128
-    vmem = (
-        spec.block * R_pad * K_lane * 4 * 2
-        + spec.block * spec.block * 4 * 2
-        + spec.block * K_lane * 4 * 5
-    )
-    return vmem < VMEM_BUDGET
-
-
-def _s_block_draws(spec: GibbsSpec, logpi_row, P_b, Wn, r0, interpret=False):
-    """(dg, track) for one block: P_b (B, R, K), Wn (B, B), r0 (B, K)."""
-    B = Wn.shape[0]
-    R = P_b.shape[1]
-    K = r0.shape[1]
-    kern = functools.partial(_kernel_s_block_t, spec, B, R, K)
-    vmem = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-    dg, track_f = pl.pallas_call(
-        kern,
-        in_specs=[vmem(), vmem(), vmem(), vmem()],
-        out_specs=(vmem(), vmem()),
-        out_shape=(
-            jax.ShapeDtypeStruct((B, K), F32),
-            jax.ShapeDtypeStruct((B, K), F32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((B, K), F32),
-            pltpu.VMEM((B, K), F32),
-            pltpu.VMEM((B, K), F32),
-        ],
-        interpret=interpret,
-        compiler_params=None if interpret else _COMPILER_PARAMS,
-    )(logpi_row, P_b.reshape(1, B, R, K), Wn.reshape(1, B, B), r0)
-    return dg, track_f
-
-
-def sweep_s_segment_t(spec: GibbsSpec, consts_b, LD_seg, r_seg_kb, P_seg_blocks,
-                      n: int, interpret=False):
-    """Transposed K-chain sweep of one padded LD segment: XLA scan over
-    blocks owns the (K, mc) r_hat state (rank-B updates as one matmul per
-    block, SBayesD.cpp:264-267), the per-block Pallas kernel runs the B
-    sequential draws for all chains on the VPU lanes.
-
-    LD_seg (mc, mc); r_seg_kb (K, mc); P_seg_blocks (nblocks, B, R, K).
-    Returns (dg (K, mc), track (K, mc), r_seg_new (K, mc))."""
-    mc = LD_seg.shape[0]
-    B = spec.block
-    nblocks = mc // B
-    K = r_seg_kb.shape[0]
-    logpi_row = consts_b["logpi"][:, 0].astype(F32).reshape(1, K)
-    LD32 = LD_seg.astype(F32)
-    nf32 = jnp.float32(n)
-
-    def body(r_seg, xs):
-        b, P_b = xs
-        Wn = jax.lax.dynamic_slice(LD32, (b * B, b * B), (B, B)) * nf32
-        r0 = jax.lax.dynamic_slice(r_seg, (0, b * B), (K, B)).T  # (B, K)
-        dg, track = _s_block_draws(spec, logpi_row, P_b, Wn, r0,
-                                   interpret=interpret)
-        cols = jax.lax.dynamic_slice(LD32, (0, b * B), (mc, B))  # (mc, B)
-        upd = jax.lax.dot_general(
-            dg, cols, (((0,), (1,)), ((), ())),
-            preferred_element_type=F32,
-        )                                                         # (K, mc)
-        return r_seg + nf32 * upd, (dg, track)
-
-    r_new, (dgs, tracks) = jax.lax.scan(
-        body, r_seg_kb.astype(F32),
-        (jnp.arange(nblocks), P_seg_blocks),
-    )
-    # (nblocks, B, K) -> (K, mc)
-    dg = dgs.transpose(2, 0, 1).reshape(K, mc)
-    track = tracks.transpose(2, 0, 1).reshape(K, mc).astype(jnp.int32)
-    return dg, track, r_new
-
-
-# ---------------------------------------------------------------------------
-# chunked-n fused sweep: X stays in HBM, n-chunks stream through VMEM with
-# double-buffered DMA — lifts the "X_b fits VMEM" limit (n up to millions)
-# ---------------------------------------------------------------------------
-
-
-def _kernel_chunked(spec: GibbsSpec, n: int, B: int, R: int, C: int,
-                    scal_ref, P_ref, X_hbm, W_ref, yadj_in_ref, u_in_ref,
-                    dg_out_ref, track_out_ref, yadj_out_ref, u_out_ref,
-                    yadj_s, u_s, r_local, dg_s, track_s, xbuf, sem):
-    """Like `_kernel` but X_b is DMA-streamed in (C, B) chunks.  Each block
-    makes two passes over its X columns (r0 accumulation, then the delta
-    scatter), both double-buffered."""
-    b = pl.program_id(0)
-    nblocks = pl.num_programs(0)
-    nchunks = n // C
-
-    @pl.when(b == 0)
-    def _():
-        yadj_s[:] = yadj_in_ref[:]
-        u_s[:] = u_in_ref[:]
-
-    P = P_ref[0]
-
-    def chunk_dma(slot, c):
-        return pltpu.make_async_copy(
-            X_hbm.at[b, pl.ds(c * C, C), :], xbuf.at[slot], sem.at[slot]
-        )
-
-    # ---- pass 1: r0 = sum_c yadj[c] @ X[c] ----
-    chunk_dma(0, 0).start()
-    r_local[:] = jnp.zeros((1, B), F32)
-
-    def p1(c, _):
-        slot = c % 2
-
-        @pl.when(c + 1 < nchunks)
-        def _():
-            chunk_dma((c + 1) % 2, c + 1).start()
-
-        chunk_dma(slot, c).wait()
-        Xc = xbuf[slot].astype(F32)
-        ya = yadj_s[0, pl.ds(c * C, C)].reshape(1, C)
-        r_local[:] = r_local[:] + jax.lax.dot_general(
-            ya, Xc, (((1,), (0,)), ((), ())), preferred_element_type=F32
-        )
-        return 0
-
-    jax.lax.fori_loop(0, nchunks, p1, 0)
-
-    # ---- sequential draws (same as _kernel) ----
-    dg_s[:] = jnp.zeros((1, B), F32)
-    track_s[:] = jnp.zeros((1, B), F32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, B), 1)
-    logpi0 = scal_ref[0]
-
-    def body(j, _):
-        mask = lane == j
-        red = jnp.sum(jnp.where(mask, P, 0.0), axis=1)
-        vals = lambda r: red[r]
-        rj = jnp.sum(jnp.where(mask, r_local[:], 0.0))
-        rhs = rj + red[0]
-        gi, track = _draw_from_vals(spec, logpi0, vals, rhs)
-        dg = red[1] - gi
-        dg_s[:] = jnp.where(mask, dg, dg_s[:])
-        if track is not None:
-            track_s[:] = jnp.where(mask, track, track_s[:])
-        wrow = W_ref[0, pl.ds(j, 1), :]
-        r_local[:] = r_local[:] + dg * wrow
-        return 0
-
-    jax.lax.fori_loop(0, B, body, 0)
-
-    dg_out_ref[0] = dg_s[:]
-    track_out_ref[0] = track_s[:]
-
-    # ---- pass 2: yadj[c] += X[c] @ dg ; u[c] -= ----
-    chunk_dma(0, 0).start()
-
-    def p2(c, _):
-        slot = c % 2
-
-        @pl.when(c + 1 < nchunks)
-        def _():
-            chunk_dma((c + 1) % 2, c + 1).start()
-
-        chunk_dma(slot, c).wait()
-        Xc = xbuf[slot].astype(F32)
-        delta = jax.lax.dot_general(
-            dg_s[:], Xc, (((1,), (1,)), ((), ())), preferred_element_type=F32
-        )  # (1, C)
-        yadj_s[0, pl.ds(c * C, C)] = yadj_s[0, pl.ds(c * C, C)] + delta[0]
-        u_s[0, pl.ds(c * C, C)] = u_s[0, pl.ds(c * C, C)] - delta[0]
-        return 0
-
-    jax.lax.fori_loop(0, nchunks, p2, 0)
-
-    @pl.when(b == nblocks - 1)
-    def _():
-        yadj_out_ref[:] = yadj_s[:]
-        u_out_ref[:] = u_s[:]
-
-
-CHUNK_N = 2048
-
-
-def supports_chunked(spec: GibbsSpec, n: int, dtype, geno_itemsize=4) -> bool:
-    if dtype != jnp.float32 or spec.reject_guard:
-        return False
-    if n % CHUNK_N != 0:
-        return False
-    vmem = (
-        2 * CHUNK_N * spec.block * geno_itemsize   # double-buffered X chunks
-        + CHUNK_N * spec.block * 4                  # f32 cast temp
-        + spec.block * spec.block * 4 * 2
-        + n * 4 * 4                                 # yadj/u in/out + scratch
-    )
-    return vmem < VMEM_BUDGET
-
-
-def sweep_chunked(spec: GibbsSpec, consts, X_blocks, W_blocks, xpx, vx, vei, g,
-                  z_snp, u_snp, chi_snp, z2_snp, vargL, yadj, u,
-                  interpret=False):
-    """Chunked-n variant of `sweep` — same semantics, X stays in HBM."""
-    nblocks, n, B = X_blocks.shape
-    m_pad = nblocks * B
-    C = CHUNK_N
-
-    consts = dict(consts)
-    consts["vargL_vec"] = vargL
-    P = _pack_rows(spec, consts, xpx, vx, vei, g, z_snp, u_snp, chi_snp)
-    R = P.shape[0]
-    P_blocks = P.reshape(R, nblocks, B).transpose(1, 0, 2)
-    scal = jnp.stack([consts["logpi"][0].astype(F32)])
-
-    kern = functools.partial(_kernel_chunked, spec, n, B, R, C)
-    full = lambda shape: pl.BlockSpec(shape, lambda b: tuple(0 for _ in shape),
-                                      memory_space=pltpu.VMEM)
-    dg, track_f, yadj_o, u_o = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, R, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),                                # X in HBM
-            pl.BlockSpec((1, B, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            full((1, n)),
-            full((1, n)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, 1, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, B), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-            full((1, n)),
-            full((1, n)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((nblocks, 1, B), F32),
-            jax.ShapeDtypeStruct((nblocks, 1, B), F32),
-            jax.ShapeDtypeStruct((1, n), F32),
-            jax.ShapeDtypeStruct((1, n), F32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((1, n), F32),
-            pltpu.VMEM((1, n), F32),
-            pltpu.VMEM((1, B), F32),
-            pltpu.VMEM((1, B), F32),
-            pltpu.VMEM((1, B), F32),
-            pltpu.VMEM((2, CHUNK_N, B), X_blocks.dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        interpret=interpret,
-        compiler_params=None if interpret else _COMPILER_PARAMS,
-    )(
-        scal, P_blocks, X_blocks, W_blocks.astype(F32),
-        yadj.astype(F32).reshape(1, n), u.astype(F32).reshape(1, n),
-    )
-
-    dg = dg.reshape(m_pad)
-    track = track_f.reshape(m_pad).astype(jnp.int32)
-    g_new = g.astype(F32) - dg
-    return _phase_c(spec, consts, vx, vei, g_new, track, u_snp, z2_snp, vargL,
-                    yadj_o.reshape(n), u_o.reshape(n))
-
-
-def _phase_c(spec, consts, vx, vei, g_new, track, u_snp, z2_snp, vargL,
-             yadj_out, u_out):
-    """Order-independent post-sweep state (shared by sweep variants)."""
-    mi = spec.model_index
-    act = vx > 0
-    if mi == 4:
-        vargi_acc = jnp.sum(jnp.where(track == 1, g_new * g_new, 0.0))
-    else:
-        vargi_acc = jnp.zeros((), F32)
-    if mi == 6:
-        ffold = consts["fold"][track]
-        vargR_acc = jnp.sum(
-            jnp.where(track > 0, g_new * g_new / jnp.maximum(ffold, 1e-30), 0.0)
-        )
-    else:
-        vargR_acc = jnp.zeros((), F32)
-    if mi == 5:
-        lam2 = consts["lambda2"].astype(F32)
-        lam = jnp.sqrt(lam2)
-        ve = vei.astype(F32)
-        znew = z2_snp.astype(F32)
-        uu = u_snp.astype(F32)
-        mu_ig = jnp.sqrt(ve) * lam / jnp.maximum(jnp.abs(g_new), 1e-30)
-        y2 = znew * znew
-        xig = mu_ig + 0.5 * mu_ig * mu_ig * y2 / lam2 - 0.5 * (mu_ig / lam2) * jnp.sqrt(
-            4.0 * mu_ig * lam2 * y2 + mu_ig * mu_ig * y2 * y2
-        )
-        ig = jnp.where(uu <= mu_ig / (mu_ig + xig), xig, mu_ig * mu_ig / xig)
-        vargi = 1.0 / ig
-        ok = (vargi > 0) if spec.vargl_strict_pos else (vargi >= 0)
-        vargL_new = jnp.where(act & ok, vargi, vargL.astype(F32))
-    else:
-        vargL_new = vargL.astype(F32)
-    return (g_new, track, vargL_new, yadj_out, u_out, vargi_acc, vargR_acc)
-
-
-# ---------------------------------------------------------------------------
-# tiled-sparse summary sweep: one grid step per LD BLOCK ROW; the full r_hat
-# state lives in VMEM scratch as (nbr, B) (m_pad*4 bytes), and each step
-# reads/updates only that row's STORED tiles — O(nnz) HBM traffic per sweep,
-# the Pallas realisation of the reference's CSC column iterator
-# (src/SBayesS.cpp:292-296).  The SBayesS rejection guard runs in-kernel with
-# N_RETRY precomputed retry draws (the reference retries <=100 times from the
-# same conditional then zeroes, src/SBayesS.cpp:388-398; bounded retries with
-# independent normals are the same truncation up to the tail probability).
-# ---------------------------------------------------------------------------
-
-N_RETRY = 8
-STREAM_SNP_ZR = 15  # retry-normal stream (engine/gibbs.py stream registry)
-
-
-def _guard_base(spec: GibbsSpec) -> int:
-    """Index of the first guard row (vx) appended after the _pack_rows rows."""
-    mi = spec.model_index
-    if mi in (1, 2, 5):
-        return 4
-    if mi in (3, 4):
-        return 5
-    return 2 + 4 * (spec.n_fold - 1) + 1  # BayesR: [rg,g, (A,B,iv,sz)*, A0]
-
-
-def _pack_retry_rows(spec: GibbsSpec, consts, xpx, vx, vei, z_retry):
-    """Guard rows: [vx, sd*z_1 .. sd*z_NR] (BayesC) or
-    [vx, (sd_f*z_1)_f .. (sd_f*z_NR)_f] (BayesR, folds 1..nf-1)."""
-    mi = spec.model_index
-    x = xpx.astype(F32)
-    ve = vei.astype(F32)
-    act = vx > 0
-    rows = [vx.astype(F32)]
-    if mi == 4:
-        v = x + ve / consts["varg"].astype(F32)
-        sd = jnp.where(act, jnp.sqrt(ve / v), 0.0)
-        for r in range(N_RETRY):
-            rows.append(sd * z_retry[r].astype(F32))
-    elif mi == 6:
-        sds = []
-        for f in range(1, spec.n_fold):
-            vara_f = jnp.maximum(consts["vara_fold"][f], 1e-30).astype(F32)
-            vf = x + ve / vara_f
-            sds.append(jnp.where(act, jnp.sqrt(ve / vf), 0.0))
-        for r in range(N_RETRY):
-            for f in range(1, spec.n_fold):
-                rows.append(sds[f - 1] * z_retry[r].astype(F32))
-    return jnp.stack(rows)
-
-
-def _kernel_s_tiled(spec: GibbsSpec, B: int, R: int, K: int, n: int,
-                    guard: bool,
-                    scal_ref, base_ref, cols_ref, valid_ref, P_ref, tiles_ref,
-                    r_in_ref,
-                    dg_out_ref, track_out_ref, r_out_ref,
-                    r_hat_s, r_loc, dg_s, track_s):
-    # row_base: global index of this program's first tile row — nonzero when
-    # the caller sweeps a SHARD of the tile rows against the full r_hat
-    # (SNP-sharded summary sweep); the r_hat state and the scatter columns
-    # are always global.
-    i = pl.program_id(0) + base_ref[0]
-    nbr = pl.num_programs(0)
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        r_hat_s[:] = r_in_ref[:]
-
-    P = P_ref[0]                 # (R, B)
-    nf32 = jnp.float32(n)
-    logpi0 = scal_ref[0]
-    vary = scal_ref[1]
-    mi = spec.model_index
-    nf = spec.n_fold
-    base = _guard_base(spec)
-
-    r_loc[:] = r_hat_s[pl.ds(i, 1), :]
-    dg_s[:] = jnp.zeros((1, B), F32)
-    track_s[:] = jnp.zeros((1, B), F32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, B), 1)
-
-    def body(j, _):
-        mask = lane == j
-        red = jnp.sum(jnp.where(mask, P, 0.0), axis=1)
-        vals = lambda r: red[r]
-        rj = jnp.sum(jnp.where(mask, r_loc[:], 0.0))
-        rhs = rj + red[0]
-        gi, track = _draw_from_vals(spec, logpi0, vals, rhs)
-        if guard and mi in (4, 6):
-            vxj = red[base]
-            on = track > 0
-            rej = (gi * gi * vxj > vary) & on
-            for r in range(N_RETRY):
-                if mi == 4:
-                    cand = rhs * red[2] + red[base + 1 + r]
-                else:
-                    cand = jnp.zeros_like(gi)
-                    for f in range(1, nf):
-                        cf = rhs * red[4 + 4 * (f - 1)] + red[base + 1 + r * (nf - 1) + (f - 1)]
-                        cand = jnp.where(track == f, cf, cand)
-                gi = jnp.where(rej, cand, gi)
-                rej = (gi * gi * vxj > vary) & on
-            gi = jnp.where(rej, jnp.zeros_like(gi), gi)
-        dg = red[1] - gi
-        dg_s[:] = jnp.where(mask, dg, dg_s[:])
-        if track is not None:
-            track_s[:] = jnp.where(mask, track, track_s[:])
-        # in-block Gram row: n * (diagonal tile row j)
-        wrow = tiles_ref[0, 0, pl.ds(j, 1), :].astype(F32)
-        r_loc[:] = r_loc[:] + dg * nf32 * wrow
-        return 0
-
-    jax.lax.fori_loop(0, B, body, 0)
-    dg_out_ref[0] = dg_s[:]
-    track_out_ref[0] = track_s[:]
-
-    # scatter: r_hat[block cols_ref[k]] += n * tile_k^T @ dg  (stored tiles only)
-    for k in range(K):
-        j = cols_ref[0, 0, k]
-        tk = tiles_ref[0, k].astype(F32)                      # (B, B)
-        upd = jax.lax.dot_general(
-            dg_s[:], tk, (((1,), (0,)), ((), ())), preferred_element_type=F32
-        )                                                     # (1, B)
-        vk = valid_ref[0, 0, k].astype(F32)
-        cur = r_hat_s[pl.ds(j, 1), :]
-        r_hat_s[pl.ds(j, 1), :] = cur + nf32 * vk * upd
-
-    @pl.when(pl.program_id(0) == nbr - 1)
-    def _():
-        r_out_ref[:] = r_hat_s[:]
-
-
-def supports_s_tiled(spec: GibbsSpec, nbr: int, k_max: int, dtype) -> bool:
-    if dtype != jnp.float32:
-        return False
-    B = spec.block
-    if B % 128 != 0:
-        return False
-    vmem = (
-        3 * nbr * B * 4                 # r_in + r_out + r_hat scratch
-        + 2 * k_max * B * B * 4         # double-buffered tile row
-        + 2 * 64 * B * 4                # P rows (generous R bound)
-    )
-    return vmem < VMEM_BUDGET
-
-
-def sweep_s_tiled(spec: GibbsSpec, consts, tiles, cols, valid, r_hat,
-                  P_blocks, n: int, row_base=None, interpret=False):
-    """Sweep tile rows of the tiled LD.  tiles (nbr_loc, K, B, B); cols/valid
-    (nbr_loc, K) with GLOBAL column-block indices; r_hat (m_pad,) — the FULL
-    state; P_blocks (nbr_loc, R, B).  `row_base` (traced scalar ok) is the
-    global index of the first swept tile row: 0 for the single-device sweep
-    (nbr_loc == m_pad/B), shard offset for the SNP-sharded sweep.  Returns
-    (dg, track) over the swept rows, each (nbr_loc*B,), plus the full updated
-    r_hat (m_pad,)."""
-    nbr_loc, K, B, _ = tiles.shape
-    nbr_full = r_hat.shape[0] // B
-    R = P_blocks.shape[1]
-    guard = bool(spec.reject_guard) and spec.model_index in (4, 6)
-    scal = jnp.stack([
-        consts["logpi"][0].astype(F32),
-        jnp.asarray(spec.vary, F32),
-    ])
-    if row_base is None:
-        row_base = jnp.zeros((), jnp.int32)
-    kern = functools.partial(_kernel_s_tiled, spec, B, R, K, n, guard)
-    full = lambda shape: pl.BlockSpec(shape, lambda i: tuple(0 for _ in shape),
-                                      memory_space=pltpu.VMEM)
-    dg, track_f, r_new = pl.pallas_call(
-        kern,
-        grid=(nbr_loc,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1, K), lambda i: (i, 0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1, K), lambda i: (i, 0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, R, B), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, K, B, B), lambda i: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-            full((nbr_full, B)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, 1, B), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, B), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            full((nbr_full, B)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((nbr_loc, 1, B), F32),
-            jax.ShapeDtypeStruct((nbr_loc, 1, B), F32),
-            jax.ShapeDtypeStruct((nbr_full, B), F32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((nbr_full, B), F32),
-            pltpu.VMEM((1, B), F32),
-            pltpu.VMEM((1, B), F32),
-            pltpu.VMEM((1, B), F32),
-        ],
-        interpret=interpret,
-        compiler_params=None if interpret else _COMPILER_PARAMS,
-    )(
-        scal,
-        jnp.asarray(row_base, jnp.int32).reshape(1),
-        cols.astype(jnp.int32).reshape(nbr_loc, 1, K),
-        valid.astype(jnp.int32).reshape(nbr_loc, 1, K),
-        P_blocks.astype(F32),
-        tiles.astype(F32),
-        r_hat.astype(F32).reshape(nbr_full, B),
-    )
-    return (dg.reshape(nbr_loc * B), track_f.reshape(nbr_loc * B).astype(jnp.int32),
-            r_new.reshape(nbr_full * B))
-
-
-# ---------------------------------------------------------------------------
 # MME single-site block draws: the epsilon-term (single-step ssbrm) analogue
-# of the SNP draw kernels.  The XLA per-site scan costs ~7 us/site of
-# dispatch overhead (554 ms/iter at qe=80k, benchmarks/epsl_sweep_80k.py);
-# this kernel runs one T-site block's sequential Gaussian draws in VMEM with
-# the same zero-tail micro-block correction as `_unrolled_draws`.
-# Reference analogue: src/solver.cpp:131-140 (sequential arma::sp_mat loop).
+# of the SNP draw kernel.  One T-site block's sequential Gaussian draws with
+# the same micro-block correction as `_draws_kernel`; the chain is a single
+# scalar sequence.  Reference analogue: src/solver.cpp:131-140.
 # ---------------------------------------------------------------------------
 
 
-def _kernel_mme_block(T, W_ref, r_ref, invd_ref, noise_ref, dx_out, dx_s):
-    """dx_j = (r0_j - sum_{i<j} W[j,i] dx_i) * invd_j + noise_j, j = 0..T-1.
-    W (T, T) = LHS diagonal block (scale*A + diag(counts)); r/invd/noise
-    (T, 1); padding sites carry invd = noise = 0 so dx stays 0."""
-    dx_s[:] = jnp.zeros((T, 1), F32)
-    S = _MICROBLOCK
-    for j0 in range(0, T, S):
-        Wblk = W_ref[pl.ds(j0, S), :]           # (S, T) static slice
-        corr_blk = jax.lax.dot_general(
-            Wblk, dx_s[:], (((1,), (0,)), ((), ())),
-            preferred_element_type=F32,
-        )                                       # (S, 1); rows >= j0 still 0
-        carried = []
-        for t in range(S):
+def _mme_kernel(T: int, W_ref, r_ref, invd_ref, noise_ref, dx_ref):
+    """dx_j = (r0_j - sum_{i<j} W[j,i] dx_i) * invd_j + noise_j, j < T.
+    W (T, T) = LHS diagonal block; padding sites carry invd = noise = 0.
+    Same two-loop structure as `_draws_kernel`."""
+    S = MICRO
+    idx_s = jax.lax.broadcasted_iota(jnp.int32, (S,), 0)
+    embed_r = jax.lax.broadcasted_iota(jnp.int32, (T, S), 0)
+    embed_c = jax.lax.broadcasted_iota(jnp.int32, (T, S), 1)
+
+    def micro(i, dx_all):
+        j0 = pl.multiple_of(i * S, S)
+        corr = jnp.sum(W_ref[pl.ds(j0, S), :] * dx_all[None, :], axis=1)
+        base = r_ref[pl.ds(j0, S)] - corr                        # (S,)
+
+        def draw(t, dx_mb):
             j = j0 + t
-            rhs = r_ref[j, :].reshape(1, 1) - corr_blk[t, :].reshape(1, 1)
-            for i, dxi in enumerate(carried):
-                rhs = rhs - W_ref[j, j0 + i] * dxi
-            dxj = (rhs * invd_ref[j, :].reshape(1, 1)
-                   + noise_ref[j, :].reshape(1, 1))
-            dx_s[j, :] = dxj.reshape(1)
-            carried.append(dxj)
-    dx_out[:] = dx_s[:]
+            sel = idx_s == t
+            rhs = (jnp.sum(jnp.where(sel, base, 0.0))
+                   - jnp.sum(W_ref[j, pl.ds(j0, S)] * dx_mb))
+            dxj = rhs * invd_ref[j] + noise_ref[j]
+            return jnp.where(sel, dxj, dx_mb)
+
+        dx_mb = jax.lax.fori_loop(0, S, draw, jnp.zeros((S,), F32))
+        dx_ref[pl.ds(j0, S)] = dx_mb
+        onehot = embed_r == j0 + embed_c
+        return dx_all + jnp.sum(jnp.where(onehot, dx_mb[None, :], 0.0), axis=1)
+
+    jax.lax.fori_loop(0, T // S, micro, jnp.zeros((T,), F32))
 
 
-def mme_block_draws(W, r0, invd, noise, interpret=False):
+def mme_block_draws(W, r0, invd, noise):
     """One MME block's T sequential single-site Gaussian draw deltas.
     W (T, T) f32 LHS block; r0/invd/noise (T,).  Returns dx (T,)."""
     T = W.shape[0]
-    kern = functools.partial(_kernel_mme_block, T)
-    full = lambda shape: pl.BlockSpec(shape, lambda: tuple(0 for _ in shape),
-                                      memory_space=pltpu.VMEM)
-    dx = pl.pallas_call(
-        kern,
-        in_specs=[full((T, T)), full((T, 1)), full((T, 1)), full((T, 1))],
-        out_specs=full((T, 1)),
-        out_shape=jax.ShapeDtypeStruct((T, 1), F32),
-        scratch_shapes=[pltpu.VMEM((T, 1), F32)],
-        interpret=interpret,
-        compiler_params=None if interpret else _COMPILER_PARAMS,
-    )(W.astype(F32), r0.astype(F32).reshape(T, 1),
-      invd.astype(F32).reshape(T, 1), noise.astype(F32).reshape(T, 1))
-    return dx[:, 0]
+    interp = runtime.interpret()
+    return pl.pallas_call(
+        functools.partial(_mme_kernel, T),
+        out_shape=jax.ShapeDtypeStruct((T,), F32),
+        backend="triton",
+        interpret=interp,
+        compiler_params=(None if interp else pl_triton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1)),
+        name="mme_block_draws",
+    )(W.astype(F32), r0.astype(F32), invd.astype(F32), noise.astype(F32))
 
 
 def supports_mme_block(T: int, dtype) -> bool:
-    return dtype == jnp.float32 and T % _MICROBLOCK == 0
+    return dtype == F32 and T >= MICRO and T & (T - 1) == 0

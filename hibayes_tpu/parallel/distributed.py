@@ -8,8 +8,8 @@ MPI/NCCL/sockets).  Here, multi-host scaling uses JAX's standard runtime:
   environment or arguments).
 * The SAME named shardings used single-host (`parallel/mesh.py`) then span
   all hosts: `make_mesh()` over `jax.devices()` returns a global mesh; the
-  `ind` axis psums ride ICI within a slice, DCN only carries the replicated
-  scalar state broadcast and checkpoint IO.
+  `ind` axis psums stay within a host, the network between hosts only
+  carries the replicated scalar state broadcast and checkpoint IO.
 
 Single-controller-per-host SPMD: every host runs the identical `run_chain`
 call; jax.Array global sharding handles the data placement.  Genotype loading

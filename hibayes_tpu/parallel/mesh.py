@@ -1,22 +1,23 @@
 """Device mesh + sharding rules.
 
 The reference has no distributed layer at all (SURVEY.md section 2.3: OpenMP
-threads + multithreaded BLAS in one process).  The TPU design scales two data
+threads + multithreaded BLAS in one process).  This design scales two data
 axes over a mesh:
 
 * ``ind`` — individuals (n).  The genotype's row axis.  Both hot matmuls of
   the blocked Gibbs sweep (r0 = X_b^T yadj and yadj += X_b dg) contract over
-  n, so XLA turns the per-block reduction into a psum over ICI while the
-  O(B) inner scan runs replicated.  Sharding this axis keeps the chain
+  n, so XLA turns the per-block reduction into a psum while the O(B)
+  draws run replicated.  Sharding this axis keeps the chain
   *mathematically exact* — the same Markov kernel, just distributed.
 * ``snp`` — markers (m).  Genuine model parallelism: X/W SNP-block shards
-  live only on their owning device's HBM and the sweep runs shards in turn
+  live only on their owning device and the sweep runs shards in turn
   with psum-merged residual corrections (engine/gibbs._sweep_snp_sharded) —
   the same Markov kernel, no full-genotype gather; also shards LD tiles and
   the GEBV/posterior matmuls.
 
-Multi-host: `jax.distributed.initialize()` + the same named shardings; ICI
-carries the n-axis psums within a slice, DCN only broadcasts scalar state.
+Multi-host: `jax.distributed.initialize()` + the same named shardings; the
+n-axis psums stay within a host, the network between hosts only carries
+scalar state.
 """
 
 from __future__ import annotations

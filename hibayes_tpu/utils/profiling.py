@@ -1,7 +1,7 @@
 """Profiling & phase timing.
 
 The reference's only observability is a nanosecond wall-clock timer feeding
-ETA prints (reference: src/MyTimer.h:20-86, src/Bayes.cpp:884-914).  On TPU
+ETA prints (reference: src/MyTimer.h:20-86, src/Bayes.cpp:884-914).  Here
 the equivalent story is (a) per-phase wall timing with derived throughput and
 (b) real device traces via ``jax.profiler`` viewable in TensorBoard/Perfetto.
 """
@@ -51,7 +51,7 @@ class PhaseTimer:
 def device_trace(logdir: str | None):
     """jax.profiler trace scope; no-op when logdir is None.
 
-    Wrap a fit call to capture an XLA/TPU trace:
+    Wrap a fit call to capture an XLA device trace:
 
     >>> with device_trace("/tmp/tb"):
     ...     ibrm(...)

@@ -2,7 +2,7 @@
 
 Mirrors the test strategy gap analysis in SURVEY.md section 4: the reference
 ships no test suite, so we build the pyramid ourselves, and multi-device
-sharding logic must be testable without TPU hardware via
+sharding logic must be testable without accelerator hardware via
 ``--xla_force_host_platform_device_count``.
 """
 
@@ -20,8 +20,28 @@ jax.config.update("jax_platforms", "cpu")
 # Enable x64 so exactness tests (blocked Gibbs vs. sequential oracle) can run
 # at f64 tolerance; production code derives dtype from its inputs and stays f32.
 jax.config.update("jax_enable_x64", True)
+# tests compile small programs afresh; nothing is kept in the on-disk cache
+jax.config.update("jax_enable_compilation_cache", False)
 
 import pytest  # noqa: E402
+
+
+@pytest.fixture
+def interpret_kernels(monkeypatch):
+    """Run the Pallas-Triton kernels in interpret mode on the CPU (the only
+    way a kernel runs off the GPU)."""
+    from hibayes_tpu import runtime
+
+    monkeypatch.setattr(runtime, "_TEST_INTERPRET", True)
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX has a GPU (decided here, never at import)."""
+    from hibayes_tpu import runtime
+
+    if runtime.platform() != "gpu":
+        pytest.skip("needs an NVIDIA GPU; run `python chip_smoke.py` there")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -219,3 +219,51 @@ def oracle_iteration(spec, dnp, base_key, st):
     st["yadj"], st["u"], st["g"] = yadj, u, g
     st["it"] += 1
     return st
+
+
+def guarded_draws_oracle(spec, P, W, r0):
+    """Sequential f64 transcription of one block's packed-row draws under
+    the SBayesS rejection guard (BayesC / BayesR, retry rows appended by
+    `ops.blockgibbs._pack_retry_rows`; src/SBayesS.cpp:388-398 with bounded
+    retries).  P (K, R, B), W (B, B), r0 (K, B).  Returns
+    (dg (K, B), track (K, B), number of rejected first draws)."""
+    from hibayes_tpu.ops import blockgibbs as BG
+
+    P = np.asarray(P, np.float64)
+    W = np.asarray(W, np.float64)
+    r0 = np.asarray(r0, np.float64)
+    K, _, B = P.shape
+    mi, nf = spec.model_index, spec.n_fold
+    base = BG._guard_base(spec)
+    dg = np.zeros((K, B))
+    track = np.zeros((K, B), np.int64)
+    n_rej = 0
+    for k in range(K):
+        for j in range(B):
+            p = P[k, :, j]
+            rhs = r0[k, j] + W[j, :j] @ dg[k, :j] + p[0]
+            if mi == 4:
+                ind = int(rhs * rhs >= p[4])
+                gi = rhs * p[2] + p[3] if ind else 0.0
+                cands = [rhs * p[2] + p[base + 1 + r] for r in range(BG.N_RETRY)]
+            else:
+                logits = [p[2 + 4 * (nf - 1)]] + [
+                    p[2 + 4 * (f - 1)] + p[3 + 4 * (f - 1)] * rhs * rhs
+                    for f in range(1, nf)]
+                ind = int(np.argmax(logits))
+                gi = (rhs * p[4 + 4 * (ind - 1)] + p[5 + 4 * (ind - 1)]
+                      if ind else 0.0)
+                cands = [rhs * p[4 + 4 * (ind - 1)]
+                         + p[base + 1 + r * (nf - 1) + (ind - 1)]
+                         for r in range(BG.N_RETRY)]
+            if ind and gi * gi * p[base] > spec.vary:
+                n_rej += 1
+                for c in cands:
+                    gi = c
+                    if gi * gi * p[base] <= spec.vary:
+                        break
+                else:
+                    gi = 0.0
+            dg[k, j] = p[1] - gi
+            track[k, j] = ind
+    return dg, track, n_rej

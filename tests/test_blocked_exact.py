@@ -1,6 +1,6 @@
 """Exactness of the blocked Gibbs vs. the sequential NumPy oracle.
 
-The blocked TPU formulation must reproduce the reference's sequential
+The blocked formulation must reproduce the reference's sequential
 per-SNP chain (same randoms -> same chain) to fp tolerance.  This is the
 structural proof that blocking does not change the Markov kernel.
 """

@@ -43,7 +43,7 @@ def test_int8_matches_f32_layout():
 
 
 @pytest.mark.slow
-def test_int8_pallas_interpret():
+def test_int8_pallas_interpret(interpret_kernels):
     data8, spec, pr, pi = _mk("int8", jnp.float32, use_pallas=True)
     _, s, _ = G.run_chain(spec, data8, pr, pi, seed=4)
     assert np.isfinite(np.asarray(s["alpha"])).all()

@@ -67,8 +67,9 @@ def test_vector_rhat_flags_divergent_chains():
 
 
 @pytest.mark.slow
-def test_multichain_pallas_kernel_interpret():
-    """Multi-chain fused kernel vs vmapped XLA sweep (interpret mode)."""
+def test_multichain_pallas_kernel_interpret(interpret_kernels):
+    """Multi-chain sweep with the draws kernel vs vmapped XLA sweep
+    (interpret mode)."""
     import jax.numpy as jnp
 
     data, spec, pr, pi = build(n=160, m=128, B=128)

@@ -1,14 +1,16 @@
-"""Pallas fused sweep vs the XLA scan path: identical chains, same randoms.
+"""Sweep with the Pallas-Triton draws kernel vs the XLA scan path:
+identical chains, same randoms.
 
-Runs the kernel in interpreter mode on CPU (conftest forces cpu); the same
-kernel compiles on real TPU (exercised by bench.py / the driver).
+Runs the kernel in interpret mode on the CPU; chip_smoke.py runs the same
+comparison with the kernel compiled for the GPU.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-pytestmark = pytest.mark.slow  # heavy shard_map/interpret compiles: full lane only
+# heavy interpret-mode compiles: full lane only
+pytestmark = [pytest.mark.slow, pytest.mark.usefixtures("interpret_kernels")]
 
 
 from hibayes_tpu.engine import gibbs as G
@@ -96,29 +98,3 @@ def test_pallas_statistical_agreement():
     a1 = np.mean(s1["alpha"], axis=0)
     a2 = np.mean(s2["alpha"], axis=0)
     assert np.corrcoef(a1, a2)[0, 1] > 0.95
-
-
-@pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
-def test_int8_resident_kernel_matches_transposed(model):
-    """sweep_mc_ti (X int8-resident in VMEM, chunked casts, single HBM pass)
-    must reproduce sweep_mc_t exactly: same packed coefficients, same draw
-    order, the only difference is where the f32 cast happens."""
-    from hibayes_tpu.ops import blockgibbs
-
-    data, spec_x, spec_p, pr, pi = build(model, n=256, m=256)
-    key = jax.random.PRNGKey(7)
-    s0 = G.init_state(spec_p, data, pr, pi)
-    pre = G._pre_sweep(spec_p, data, key, s0)
-    assert blockgibbs.supports_mc_ti(spec_p, spec_p.n, 1, jnp.float32)
-
-    args = (spec_p, jax.tree_util.tree_map(lambda x: jnp.asarray(x)[None], pre["consts"]),
-            data.X_blocks, data.W_blocks, data.xpx, data.vx,
-            pre["vei"][None], s0.g[None], *(r[None] for r in pre["rnd"]),
-            pre["vargL_in"][None], pre["yadj"][None], pre["u"][None])
-    out_t = blockgibbs.sweep_mc_t(*args, interpret=True)
-    out_i = blockgibbs.sweep_mc_ti(*args, interpret=True)
-    names = ["g", "track", "vargL", "yadj", "u", "vargi", "vargR"]
-    for name, a, b in zip(names, out_t, out_i):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0,
-            atol=1e-5 * (np.abs(np.asarray(a)).max() + 1e-12), err_msg=name)

@@ -1,10 +1,8 @@
 """Row padding of the individual axis (prepare_gibbs_data pad_n).
 
-The chunked Pallas sweeps slice residual rows at 128-aligned lane offsets,
-so odd cohort sizes (the 50k-individual flagship: 50,000 % 512 != 0) are
-zero-padded up to a multiple of 512.  Zero rows are exact no-ops in every
-dot product and all statistics use n_real, so the padded chain must match
-the unpadded chain to f64 round-off.
+pad_n=True zero-pads the individual axis up to a multiple of 512.  Zero
+rows are exact no-ops in every dot product and all statistics use n_real,
+so the padded chain must match the unpadded chain to f64 round-off.
 """
 
 import jax
@@ -13,7 +11,6 @@ import numpy as np
 import pytest
 
 from hibayes_tpu.engine import gibbs as G
-from hibayes_tpu.ops.blockgibbs import _pick_chunk
 
 
 def _build(pad, n=100, m=64, B=32, model="BayesCpi", seed=3):
@@ -78,13 +75,3 @@ def test_pad_n_refused_with_bslmm_or_epsl():
     with pytest.raises(ValueError, match="pad_n"):
         G.prepare_gibbs_data(y, M, K=np.eye(32), Kval=np.ones(32),
                              block=16, pad_n=True)
-
-
-def test_pick_chunk_lane_aligned():
-    """Chunk sizes must be multiples of 128 (Mosaic lane-offset alignment);
-    n=50,000 has no aligned divisor (the padding case), n=51,200 does."""
-    for n in (16384, 32768, 51200, 50176):
-        c = _pick_chunk(n)
-        assert c == 0 or (c % 128 == 0 and n % c == 0 and c >= 512)
-    assert _pick_chunk(50000) == 0
-    assert _pick_chunk(51200) == 2048

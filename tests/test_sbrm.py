@@ -26,7 +26,7 @@ def test_ldmat_dense_matches_numpy():
 
 
 def test_ldmat_int8_gram_exact():
-    """int8 genotypes take the exact int32 MXU Gram path: result equals the
+    """int8 genotypes take the exact int32 Gram path: result equals the
     float64 covariance to ~machine precision (better than the f32 path)."""
     rng = np.random.default_rng(7)
     Xi = rng.binomial(2, 0.4, size=(80, 16)).astype(np.int8)

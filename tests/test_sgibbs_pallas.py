@@ -1,9 +1,11 @@
-"""Summary-engine Pallas path vs XLA scan path (interpret mode on CPU)."""
+"""Summary engine with the Pallas draws kernel vs the XLA scan path
+(interpret mode on CPU)."""
 
 import jax
 import numpy as np
 import pytest
-pytestmark = pytest.mark.slow  # heavy shard_map/interpret compiles: full lane only
+# heavy interpret-mode compiles: full lane only
+pytestmark = [pytest.mark.slow, pytest.mark.usefixtures("interpret_kernels")]
 
 
 from hibayes_tpu.engine import gibbs as G
@@ -68,7 +70,7 @@ def _f32_data(data):
 
 @pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
 def test_s_multichain_kernel_matches_vmapped_scan(model):
-    """one_s_iteration_batch (transposed segment kernel, interpret mode) vs
+    """one_s_iteration_batch (segment sweep with the draws kernel) vs
     the vmapped XLA scan for K chains in one iteration."""
     import jax.numpy as jnp
 
@@ -82,7 +84,7 @@ def test_s_multichain_kernel_matches_vmapped_scan(model):
         lambda x: jnp.broadcast_to(x, (K,) + x.shape), s0
     )
     keys = jax.random.split(jax.random.PRNGKey(7), K)
-    assert SG.blockgibbs_supports_s_t(spec_p, K, jnp.float32)
+    assert G._kernel_draws(spec_p, jnp.float32)
     sx = jax.jit(lambda ss: SG.one_s_iteration_batch(spec_x, data32, keys, ss))(states)
     sp = jax.jit(lambda ss: SG.one_s_iteration_batch(spec_p, data32, keys, ss))(states)
     tx, tp = np.asarray(sx.track), np.asarray(sp.track)

@@ -1,15 +1,15 @@
-"""Fused Pallas kernels under sharded meshes (VERDICT r2 items 1-2, 4).
+"""The Pallas draws kernel under sharded meshes.
 
 Three production paths are exercised in interpret mode on the 8-device CPU
-mesh (the same kernels compile on TPU):
+mesh (chip_smoke.py --four-cards runs them compiled on four GPUs):
 
-* SNP-sharded turn loop running the monolithic fused sweep shard-locally
-  (pure m-MP: `engine/gibbs._sweep_snp_sharded` kernel branch).
+* SNP-sharded turn loop running the draws kernel shard-locally
+  (pure m-MP: `engine/gibbs._sweep_snp_sharded`).
 * ind-sharded hybrid: shard_map-wrapped per-block draws kernel with psum'd
   r0 — the path that makes `use_pallas` SAFE under an ind mesh (pallas_call
   has no GSPMD rule; routing it unguarded would gather the full genotype).
-* SNP-sharded tiled summary sweep running `sweep_s_tiled` shard-locally with
-  a row offset (`engine/sgibbs._tiled_sweep_snp_sharded` kernel branch).
+* SNP-sharded tiled summary sweep running the draws kernel shard-locally
+  with a row offset (`engine/sgibbs._tiled_sweep_snp_sharded`).
 
 Both paths draw from identical RNG streams as the unsharded kernel, so one
 iteration from the same state agrees up to f32 merge wobble: we assert the
@@ -23,7 +23,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-pytestmark = pytest.mark.slow  # heavy shard_map/interpret compiles: full lane only
+# heavy shard_map/interpret compiles: full lane only
+pytestmark = [pytest.mark.slow, pytest.mark.usefixtures("interpret_kernels")]
 
 
 import hibayes_tpu as ht
@@ -87,11 +88,11 @@ def assert_sweep_agrees(s_ref, s_test, min_agree=0.99):
 
 @pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
 def test_snp_sharded_kernel_matches_unsharded_kernel(model):
-    """Pure m-MP mesh: the turn loop must run the monolithic fused kernel
+    """Pure m-MP mesh: the turn loop must run the draws kernel
     shard-locally and reproduce the unsharded kernel sweep."""
     data, spec, pr, pi = build(model)
-    # the selection must actually pick a kernel for this config
-    assert G._select_sweep_mc(spec, spec.n, 1, jnp.float32, 4, True) is not None
+    # the selection must actually pick the kernel for this config
+    assert G._kernel_draws(spec, jnp.float32)
     s0 = G.init_state(spec, data, pr, pi)
     s1 = one_iter(spec, data, s0)
     s8 = one_iter(spec, data, s0, mesh=make_mesh(8, shape=(1, 8)))
@@ -111,9 +112,9 @@ def test_2d_mesh_hybrid_matches_unsharded_kernel():
 @pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
 def test_ind_sharded_hybrid_matches_unsharded_kernel(model):
     """ind-only mesh with use_pallas=True must route the shard_map hybrid
-    (NOT the monolithic kernel, which would gather X) and agree."""
+    (shard_map around the kernel, never a gather of X) and agree."""
     data, spec, pr, pi = build(model, m=512)
-    assert G.hybrid_draws_supported(spec, jnp.float32)
+    assert G._kernel_draws(spec, jnp.float32)
     s0 = G.init_state(spec, data, pr, pi)
     s1 = one_iter(spec, data, s0)
     s8 = one_iter(spec, data, s0, mesh=make_mesh(8, shape=(8, 1)))
@@ -159,12 +160,12 @@ def batch_one_iter(spec, data, states, keys, mesh=None):
 
 @pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
 def test_multichain_snp_sharded_matches_unsharded_kernel(model):
-    """m-MP x multi-chain (VERDICT r3 item 3): the turn loop runs the fused
-    multi-chain kernel shard-locally for all K chains and must reproduce the
-    unsharded multi-chain kernel sweep."""
+    """m-MP x multi-chain: the turn loop runs the draws kernel
+    shard-locally for all K chains and must reproduce the unsharded
+    multi-chain kernel sweep."""
     data, spec, pr, pi = build(model)
     K = 3
-    assert G._select_sweep_mc(spec, spec.n, K, jnp.float32, 4, True) is not None
+    assert G._kernel_draws(spec, jnp.float32)
     states, keys = _batched(spec, data, pr, pi, K)
     s1 = batch_one_iter(spec, data, states, keys)
     s8 = batch_one_iter(spec, data, states, keys, mesh=make_mesh(8, shape=(1, 8)))
@@ -202,7 +203,7 @@ def test_multichain_snp_sharded_no_full_gather():
 
 def test_multichain_ind_sharded_hybrid():
     """nchains>1 on an ind mesh with use_pallas=True: the batched hybrid runs
-    (no monolithic kernel) and matches the unsharded multi-chain kernel."""
+    and matches the unsharded multi-chain kernel."""
     data, spec, pr, pi = build("BayesCpi", m=256)
     _, sam1, ex1 = G.run_chains(spec, data, pr, pi, seed=7, nchains=2)
     _, sam8, ex8 = G.run_chains(spec, data, pr, pi, seed=7, nchains=2,
@@ -233,7 +234,7 @@ def test_snp_sharded_kernel_statistical_chain():
 
 
 # ---------------------------------------------------------------------------
-# summary engine: SNP-sharded tiled sweep through the fused kernel
+# summary engine: SNP-sharded tiled sweep through the draws kernel
 # ---------------------------------------------------------------------------
 
 
@@ -279,15 +280,11 @@ def s_one_iter(spec, data, state, mesh=None):
 
 @pytest.mark.parametrize("model,guard", [("BayesCpi", True), ("BayesR", False)])
 def test_sbrm_tiled_snp_sharded_kernel_matches_unsharded(model, guard):
-    """The sharded tiled sweep must run sweep_s_tiled shard-locally (row
+    """The sharded tiled sweep must run the draws kernel shard-locally (row
     offset against the full r_hat) and reproduce the unsharded kernel sweep,
     including the in-kernel rejection guard's retry stream."""
-    from hibayes_tpu.ops import blockgibbs
-
     data, spec, pr, pi = build_tiled(model, guard=guard)
-    nbr = data.ld_tiles.shape[0]
-    assert blockgibbs.supports_s_tiled(spec, nbr, data.ld_tiles.shape[1],
-                                       jnp.float32)
+    assert G._kernel_draws(spec, jnp.float32)
     s0 = SG.init_s_state(spec, data, pr, pi)
     s1 = s_one_iter(spec, data, s0)
     s8 = s_one_iter(spec, data, s0, mesh=make_mesh(8, shape=(1, 8)))

@@ -1,7 +1,7 @@
 """Multi-device sharding: the n-sharded chain must match single-device exactly.
 
 Runs on the virtual 8-device CPU mesh from conftest (the same mechanism the
-driver uses to validate pod-slice logic without TPUs, SURVEY.md section 4).
+multi-device logic is validated with, SURVEY.md section 4).
 """
 
 import jax
@@ -92,7 +92,7 @@ def test_2d_mesh_matches_single_device(shape):
 def test_snp_sharding_scales_memory():
     """The compiled step must NOT gather the full genotype to one device:
     per-device live temp stays far below the global X size (the property that
-    lets 50k x 500k int8 = 25 GB span an 8-chip slice)."""
+    lets 50k x 500k int8 = 25 GB span several devices)."""
     from functools import partial
 
     from hibayes_tpu.parallel.mesh import shard_gibbs_data, shard_state
@@ -181,7 +181,7 @@ def test_shard_state_is_sharding_fixed_point():
     """shard_state must place the chain state exactly as one_iteration emits
     it, so threaded state (segmented checkpoint runner, benchmark loops)
     reuses one jit cache entry.  A mismatch costs a full second compile —
-    observed as seconds/call hidden inside a timed loop on real TPU."""
+    observed as seconds/call hidden inside a timed loop."""
     from functools import partial
 
     data, spec, pr, pi = build()

@@ -314,9 +314,10 @@ def test_blocked_mme_gibbs_sparse_matches_dense():
     assert stored < 4 * A.nnz + sp_obj.diag_blocks.shape[0] * T
 
 
-def test_blocked_mme_gibbs_sparse_kernel_matches_scan():
-    """The fused Pallas MME block-draw kernel draws the same chain as the
-    XLA per-site scan (f32, association-order tolerance)."""
+def test_blocked_mme_gibbs_sparse_kernel_matches_scan(interpret_kernels):
+    """The Pallas-Triton MME block-draw kernel (interpret mode) draws the
+    same chain as the XLA per-site scan (f32, association-order
+    tolerance)."""
     import jax.numpy as jnp
     import scipy.sparse as sp
 
@@ -345,8 +346,7 @@ def test_blocked_mme_gibbs_sparse_kernel_matches_scan():
             jnp.zeros(qe_pad, jnp.float32), jnp.asarray(b), jnp.float32(1.3),
             jnp.asarray(z))
     x_scan, Ae_scan = blocked_mme_gibbs_sparse(*args, use_pallas=False)
-    x_kern, Ae_kern = blocked_mme_gibbs_sparse(*args, use_pallas=True,
-                                               interpret=True)
+    x_kern, Ae_kern = blocked_mme_gibbs_sparse(*args, use_pallas=True)
     scale = np.abs(np.asarray(x_scan)).max() + 1e-12
     np.testing.assert_allclose(np.asarray(x_kern), np.asarray(x_scan),
                                rtol=0, atol=1e-4 * scale)
@@ -410,10 +410,9 @@ def test_ssbrm_scale_synthetic_no_dense_operator(monkeypatch):
 
 
 def test_ssbrm_ne0_large_n_row_padding():
-    """ne == 0 (every phenotyped individual genotyped) drops the epsilon args,
-    which makes the cohort eligible for prepare_gibbs_data's pad_n='auto' row
-    padding at n > 4096: the GibbsSpec must carry the padded n / real n_real
-    pair or the trace crashes on a shape mismatch (ADVICE r4, medium)."""
+    """ne == 0 (every phenotyped individual genotyped) drops the epsilon args
+    at n > 4096: the GibbsSpec must carry the array n / real n_real pair of
+    the prepared data or the trace crashes on a shape mismatch."""
     rng = np.random.default_rng(11)
     ids, sires, dams = _random_pedigree(200, 300, seed=9)  # 500 pedigree ids
     n_g, m = 5000, 64

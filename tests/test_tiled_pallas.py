@@ -1,16 +1,16 @@
-"""Tiled-sparse summary sweep: Pallas kernel (interpret mode) vs XLA scan.
+"""Tiled-sparse summary sweep: draws kernel (interpret mode) vs XLA scan.
 
-The kernel keeps the full r_hat state in VMEM as (nbr, B) and touches only
-stored tiles — same Markov kernel as the XLA `_tiled_sweep`; the only
-permitted divergence is the bounded in-kernel rejection guard (N_RETRY
-precomputed draws vs the scan's while-loop, reference src/SBayesS.cpp:388-398)
-which must not fire on well-conditioned data.
+Both touch only stored tiles — the same Markov kernel; the only permitted
+divergence is the bounded in-kernel rejection guard (N_RETRY precomputed
+draws vs the scan's while-loop, reference src/SBayesS.cpp:388-398) which
+must not fire on well-conditioned data.
 """
 
 import jax
 import numpy as np
 import pytest
-pytestmark = pytest.mark.slow  # heavy shard_map/interpret compiles: full lane only
+# heavy interpret-mode compiles: full lane only
+pytestmark = [pytest.mark.slow, pytest.mark.usefixtures("interpret_kernels")]
 
 
 from hibayes_tpu.data.sparse_ld import build_tiled_ld
@@ -47,12 +47,9 @@ def _make_tiled_problem(model, m=512, tile=128):
 
 @pytest.mark.parametrize("model", ["BayesCpi", "BayesRR", "BayesR"])
 def test_tiled_pallas_matches_scan(model):
-    from hibayes_tpu.ops import blockgibbs
-
     data, spec, pr, pi = _make_tiled_problem(model)
-    nbr, k_max = data.ld_tiles.shape[0], data.ld_tiles.shape[1]
     spec_p = G.GibbsSpec(**{**spec.__dict__, "use_pallas": True})
-    assert blockgibbs.supports_s_tiled(spec_p, nbr, k_max, data.xy.dtype)
+    assert G._kernel_draws(spec_p, data.xy.dtype)
 
     key = jax.random.PRNGKey(33)
     s0 = SG.init_s_state(spec, data, pr, pi)
