@@ -3,8 +3,6 @@
 
     python chip_smoke.py                 # phases 0-5 on one GPU
     python chip_smoke.py --four-cards    # phase 6 only: meshes over 4 GPUs
-    python chip_smoke.py --rehearse      # tiny shapes on the CPU, kernels in
-                                         # interpret mode (no device numbers)
 
 Seeded synthetic data, nothing downloaded, one process.  Every phase prints
 one line `[phase] seconds=... path=... <results>`; any failed check raises,
@@ -23,7 +21,6 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import os
 import subprocess
 import sys
 import time
@@ -38,10 +35,6 @@ FULL = dict(
     n_anchor=50_000, m=65_536, n_mc=4_096, nchains=64, n_ld=2_000,
     m_dense=8_192, n_ped=20_000, n_geno=5_000, n_phen=12_000, m_ss=8_192,
     block=128, niter=40, nburn=20, reps=5, mme_T=128, check_fit=True)
-TINY = dict(
-    n_anchor=512, m=1_024, n_mc=256, nchains=16, n_ld=300,
-    m_dense=512, n_ped=1_200, n_geno=300, n_phen=600, m_ss=256,
-    block=128, niter=12, nburn=6, reps=1, mme_T=128, check_fit=False)
 
 
 class CheckFailed(AssertionError):
@@ -163,6 +156,13 @@ def sim_cohort(seed, n, m, h2=0.5, n_causal=500):
     return M, ids, data, g
 
 
+def gebv_corr(fit, ids, g_true):
+    """Correlation of a fit's GEBV with the simulated genetic values."""
+    pos = {k: i for i, k in enumerate(fit.g["id"])}
+    gebv = np.asarray(fit.g["gebv"])[[pos[i] for i in ids]]
+    return float(np.corrcoef(gebv, g_true)[0, 1])
+
+
 def engine_problem(M, y, model, block, nchains=1):
     """Engine-level data/spec for one-step timing and comparisons."""
     import jax.numpy as jnp
@@ -194,17 +194,31 @@ def engine_problem(M, y, model, block, nchains=1):
 # ---------------------------------------------------------------------------
 
 
+def draw_path(model, block):
+    """The sweep path a front-end takes for this method and block: the
+    draws kernel or the per-SNP XLA scan (`engine.gibbs._kernel_draws` on a
+    spec flagged by `runtime.use_kernels()`, as every front-end flags it)."""
+    import jax.numpy as jnp
+
+    from hibayes_tpu import runtime
+    from hibayes_tpu.engine import gibbs as G
+
+    spec = G.GibbsSpec(
+        model=model, n=1, m=block, m_pad=block, block=block, nc=0,
+        nlevels=(), n_fold=2, niter=1, nburn=0, thin=1, nvar0=0,
+        use_pallas=runtime.use_kernels())
+    path = "kernels" if G._kernel_draws(spec, jnp.float32) else "xla-scan"
+    check(path == "kernels", f"{model} block={block} takes the XLA scan")
+    return path
+
+
 @phase("phase0 device")
-def phase0(rehearse):
+def phase0():
     import jax
 
     from hibayes_tpu import runtime
 
     dev = jax.devices()[0]
-    if rehearse:
-        runtime._TEST_INTERPRET = True
-        return {"platform": dev.platform, "note": "rehearsal on CPU, interpret "
-                "mode, no device numbers"}
     check(dev.platform == "gpu", f"no GPU: JAX platform is {dev.platform}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -355,15 +369,12 @@ def phase2(S):
                   method="BayesR", block=S["block"], niter=S["niter"],
                   nburn=S["nburn"], thin=5, verbose=False, printfreq=0)
     t_fit = time.perf_counter() - t0
-    h2 = float(fit.h2)
-    pos = {k: i for i, k in enumerate(fit.g["id"])}
-    gebv = np.asarray(fit.g["gebv"])[[pos[i] for i in ids]]
-    corr = float(np.corrcoef(gebv, g_true)[0, 1])
+    h2, corr = float(fit.h2), gebv_corr(fit, ids, g_true)
     check(np.isfinite(h2) and np.isfinite(corr), f"h2 {h2}, GEBV corr {corr}")
     if S["check_fit"]:
         check(0.2 < h2 < 0.8, f"h2 {h2} (simulated 0.5)")
         check(corr > 0.5, f"GEBV corr {corr}")
-    out = {"path": "ibrm/kernels", "n": n, "m": m,
+    out = {"path": "ibrm/" + draw_path("BayesR", S["block"]), "n": n, "m": m,
            "fit_s": round(t_fit, 1), "h2": round(h2, 4),
            "gebv_corr": round(corr, 4)}
     G, data_e, spec, pr, pi = engine_problem(M, data["y"], "BayesR", S["block"])
@@ -391,7 +402,8 @@ def phase3(S):
     check(np.isfinite(rh.get("Vg", np.nan)) and np.isfinite(rh.get("h2", np.nan)),
           f"split-R-hat not finite: {rh}")
     check(np.isfinite(fit.h2), "h2 not finite")
-    out = {"path": "ibrm/kernels", "n": n, "m": m, "chains": K,
+    out = {"path": "ibrm/" + draw_path("BayesCpi", S["block"]), "n": n,
+           "m": m, "chains": K,
            "first_call_s": round(t1 - t0, 1),
            "ms_per_iter": round(1e3 * (t2 - t1) / niter, 2),
            "rhat_Vg": round(rh["Vg"], 3), "rhat_h2": round(rh["h2"], 3)}
@@ -449,7 +461,8 @@ def phase4(S):
     t0 = time.perf_counter()
     ld = ht.ldmat(X, chisq=30.0, tiled=True, tile=B, stripe=4096)
     t_ld = time.perf_counter() - t0
-    out = {"path": "sbrm/tiled/kernels", "n": n, "m": m,
+    out = {"path": "sbrm/tiled/" + draw_path("BayesCpi", ld.tile), "n": n,
+           "m": m,
            "ldmat_s": round(t_ld, 1), "tiles": int(ld.valid.sum()),
            "k_max": int(ld.tiles.shape[1])}
     t0 = time.perf_counter()
@@ -497,6 +510,7 @@ def phase4(S):
     fit_d = ht.sbrm(sumstats(Xd, 5), ld_d, method="BayesCpi",
                     niter=S["niter"], nburn=S["nburn"], block=B,
                     verbose=False, printfreq=0)
+    out["dense_path"] = "sbrm/segments/" + draw_path("BayesCpi", B)
     out["dense_blocks"] = type(ld_d).__name__
     out["dense_sbrm_s"] = round(time.perf_counter() - t0, 1)
     check(np.isfinite(fit_d.h2) and 0 <= fit_d.h2 < 1, f"dense h2 {fit_d.h2}")
@@ -525,9 +539,11 @@ def phase5(S):
     import scipy.sparse as sp
 
     import hibayes_tpu as ht
+    from hibayes_tpu import runtime
     from hibayes_tpu.data.pedigree import make_ainv, make_ped, rcm_permutation
     from hibayes_tpu.engine.gibbs import (
         _build_epsl_sparse, blocked_mme_gibbs_sparse)
+    from hibayes_tpu.ops import blockgibbs as BG
 
     rng = np.random.default_rng(6)
     n_ids, n_g, m = S["n_ped"], S["n_geno"], S["m_ss"]
@@ -542,7 +558,12 @@ def phase5(S):
                    method="BayesCpi", niter=S["niter"], nburn=S["nburn"],
                    block=S["block"], thin=5, verbose=False, printfreq=0,
                    impute="pcg")
-    out = {"path": "ssbrm/pcg/kernels", "ids": n_ids, "genotyped": n_g,
+    # the epsilon sweep's tile is min(block, 128) (prepare_gibbs_data)
+    eps_kernel = runtime.use_kernels() and BG.supports_mme_block(
+        min(S["block"], 128), jnp.float32)
+    check(eps_kernel, "the epsilon sweep takes the site scan")
+    out = {"path": "ssbrm/pcg/" + draw_path("BayesCpi", S["block"]),
+           "eps_path": "kernel", "ids": n_ids, "genotyped": n_g,
            "m": m, "fit_s": round(time.perf_counter() - t0, 1)}
     check(np.isfinite(fit.g["gebv"]).all(), "GEBV not finite")
     check(fit.Veps is not None and np.isfinite(fit.Veps), f"Veps {fit.Veps}")
@@ -584,10 +605,12 @@ def phase5(S):
 
 @phase("phase6 four cards")
 def phase6(S):
-    """ibrm BayesR on (1,4) snp and (4,1) ind meshes, the pipeline schedule
-    with 4 chains on (1,4), and sbrm tiled LD on (1,4) — the engine steps
-    that ibrm(mesh=...) / sbrm(mesh=...) run, each compared with the same
-    step on one card, from the same state, for 3 iterations."""
+    """The front-ends on four cards: ibrm(mesh=) on a (1,4) snp mesh (what
+    the CLI's --shards 4 builds), with the pipeline schedule and 4 chains,
+    and sbrm(mesh=) on tiled LD.  Then the engine steps these fits run —
+    ibrm BayesR on (1,4) snp and (4,1) ind meshes, the pipeline schedule
+    and the sbrm tiled sweep — each compared with the same step on one
+    card, from the same state, for 3 iterations."""
     import dataclasses
 
     import jax
@@ -599,10 +622,29 @@ def phase6(S):
     from hibayes_tpu.parallel.mesh import (
         make_mesh, shard_gibbs_data, shard_sgibbs_data, shard_state)
 
-    check(len(jax.devices()) == 4, f"needs 4 devices, found {len(jax.devices())}")
-    out = {"devices": ",".join(str(d.id) for d in jax.devices())}
+    check(len(jax.devices()) >= 4, f"needs 4 devices, found {len(jax.devices())}")
+    out = {"path": "mesh/" + draw_path("BayesR", S["block"]),
+           "devices": ",".join(str(d.id) for d in jax.devices()[:4])}
     n, m = S["n_anchor"], S["m"]
-    M, ids, data, _ = sim_cohort(1, n, m)
+    M, ids, data, g_true = sim_cohort(1, n, m)
+    fit_kw = dict(data=data, M=M, M_id=ids, method="BayesR", block=S["block"],
+                  thin=5, verbose=False, printfreq=0,
+                  mesh=make_mesh(4, shape=(1, 4)))
+    for label, kw in (
+            ("ibrm_snp_turn", dict(niter=20, nburn=10)),
+            ("ibrm_pipeline", dict(niter=30, nburn=10, nchains=4,
+                                   shard_schedule="pipeline"))):
+        t0 = time.perf_counter()
+        fit = ht.ibrm("y ~ x1 + (1|grp)", **fit_kw, **kw)
+        out[f"{label}_fit_s"] = round(time.perf_counter() - t0, 1)
+        h2, corr = float(fit.h2), gebv_corr(fit, ids, g_true)
+        check(np.isfinite(h2) and np.isfinite(corr),
+              f"{label}: h2 {h2}, GEBV corr {corr}")
+        if S["check_fit"]:
+            check(corr > 0.5, f"{label}: GEBV corr {corr}")
+        out[f"{label}_h2"] = round(h2, 4)
+        out[f"{label}_gebv_corr"] = round(corr, 4)
+    del fit
     G, d1, spec, pr, pi = engine_problem(M, data["y"], "BayesR", S["block"])
     key = jax.random.PRNGKey(5)
 
@@ -649,13 +691,21 @@ def phase6(S):
              make_mesh(4, shape=(1, 4)), sb,
              dataclasses.replace(spec, shard_schedule="pipeline",
                                  emulate_shards=4), batch_keys=keys)
-    del d1, M
+    del d1, M, fit_kw
 
-    # sbrm tiled LD on (1,4)
+    # sbrm tiled LD on (1,4): the front-end, then its engine step
     X = banded_genotype(3, S["n_ld"], m)
     ld = ht.ldmat(X, chisq=30.0, tiled=True, tile=S["block"], stripe=4096)
+    ss = sumstats(X, 4)
+    smesh = make_mesh(4, shape=(1, 4))
+    t0 = time.perf_counter()
+    sfit = ht.sbrm(ss, ld, method="BayesCpi", niter=20, nburn=10,
+                   verbose=False, printfreq=0, mesh=smesh)
+    out["sbrm_mesh_fit_s"] = round(time.perf_counter() - t0, 1)
+    check(np.isfinite(sfit.h2) and 0 <= sfit.h2 < 1, f"sbrm h2 {sfit.h2}")
+    out["sbrm_mesh_h2"] = round(float(sfit.h2), 4)
     sdata, n_eff, vary, nvar0, seg_sizes, seg_real = SG.prepare_sgibbs_data(
-        sumstats(X, 4), ld, fold=np.zeros(2), block=S["block"])
+        ss, ld, fold=np.zeros(2), block=S["block"])
     spr = G.resolve_priors(None, float(np.sum(np.asarray(ld.diag))), 0.95,
                            nr=0, vary=vary)
     sspec = G.GibbsSpec(
@@ -666,7 +716,6 @@ def phase6(S):
         lambda_rate0=spr.lambda_rate0, vargl_strict_pos=True,
         real_excl_nvar0=True, vary=vary, seg_sizes=seg_sizes,
         seg_real=seg_real, use_pallas=runtime.use_kernels())
-    smesh = make_mesh(4, shape=(1, 4))
     sd4 = shard_sgibbs_data(sdata, smesh)
     ref = bind(lambda d, s: SG.one_s_iteration(sspec, d, key, s), sdata)
     with smesh:
@@ -690,18 +739,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--four-cards", action="store_true",
                     help="run only the four-GPU mesh phase")
-    ap.add_argument("--rehearse", action="store_true",
-                    help="tiny shapes on the CPU, kernels in interpret mode")
-    ap.add_argument("--phases", default="1,2,3,4,5",
-                    help="comma-separated single-card phases to run "
-                         "(a rerun after a failure can skip passed phases)")
     args = ap.parse_args(argv)
-    if args.rehearse:
-        os.environ.setdefault(
-            "XLA_FLAGS", "--xla_force_host_platform_device_count=4")
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
     try:
         import hibayes_tpu  # noqa: F401
         import tests.oracle  # noqa: F401
@@ -711,22 +749,14 @@ def main(argv=None):
         return 2
     import jax
 
-    S = TINY if args.rehearse else FULL
-    todo = {int(p) for p in args.phases.split(",") if p}
     try:
-        phase0(args.rehearse)
-        if args.four_cards:
-            phase6(S)
-        for i, fn in ((1, phase1), (2, phase2), (3, phase3), (4, phase4),
-                      (5, phase5)):
-            if i in todo and not args.four_cards:
-                fn(S)
+        phase0()
+        for fn in ((phase6,) if args.four_cards else
+                   (phase1, phase2, phase3, phase4, phase5)):
+            fn(FULL)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if args.rehearse:
-        print("rehearsal passed (CPU, interpret mode: no device numbers)")
-        return 0
     dev = jax.devices()[0]
     print(json.dumps({"ok": True, "device": {
         "platform": dev.platform, "kind": dev.device_kind,

@@ -26,8 +26,7 @@ __all__ = [
 ]
 
 
-if not runtime.cpu_only():
-    runtime.configure_compile_cache()
+runtime.configure_compile_cache()
 
 
 def __getattr__(name):

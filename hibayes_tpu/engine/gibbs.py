@@ -83,7 +83,7 @@ class GibbsSpec:
     """Static configuration of one chain (hashable -> part of the jit key)."""
 
     model: str
-    n: int                  # array row count (== n_real unless row-padded)
+    n: int                  # individuals (rows of y and X)
     m: int                  # number of real SNPs
     m_pad: int              # padded to a multiple of block
     block: int
@@ -95,11 +95,6 @@ class GibbsSpec:
     thin: int
     nvar0: int              # monomorphic SNP count (vx == 0 among real SNPs)
     nw: int = 0             # GWAS windows (0 = off)
-    # real individual count when the row axis is zero-padded for the chunked
-    # kernels (prepare_gibbs_data pad_n); 0 means n is real.  All statistics
-    # (intercept, Ve/Va draws, variances) use n_obs; padded rows stay
-    # exactly zero in yadj/u so every dot product is unchanged.
-    n_real: int = 0
     fixpi: bool = False
     # priors (resolved to numbers before tracing; reference Bayes.cpp:319-363)
     dfvara: float = 4.0
@@ -182,13 +177,13 @@ class GibbsSpec:
         # individual-level engine only (seg_sizes marks a summary-LD spec,
         # where cross-shard coupling is bounded by the LD tile overlap, not
         # by the X'X rank deficiency)
-        if (self.shard_schedule == "concurrent" and self.m > self.n_obs
+        if (self.shard_schedule == "concurrent" and self.m > self.n
                 and not self.seg_sizes):
             import warnings
 
             warnings.warn(
                 f"shard_schedule='concurrent' with m ({self.m}) > n "
-                f"({self.n_obs}): the relaxed kernel is a block-Jacobi "
+                f"({self.n}): the relaxed kernel is a block-Jacobi "
                 "splitting whose iteration operator can exceed spectral "
                 "radius 1 in this rank-deficient regime — measured Vg "
                 "deflation ~30% / Ve inflation ~50% at n=4096 x m=65536, "
@@ -201,14 +196,6 @@ class GibbsSpec:
     @property
     def model_index(self) -> int:
         return MODEL_INDEX[self.model]
-
-    @property
-    def n_obs(self) -> int:
-        return self.n_real or self.n
-
-    @property
-    def row_padded(self) -> bool:
-        return bool(self.n_real) and self.n_real != self.n
 
     @property
     def nblocks(self) -> int:
@@ -749,13 +736,10 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, key, state: ChainState):
     ve = state.vare
 
     # --- intercept (src/Bayes.cpp:480-482) ---
-    n_obs = spec.n_obs
-    row_real = (jnp.arange(n) < n_obs) if spec.row_padded else None
     z = jax.random.normal(jax.random.fold_in(key, STREAM_MU), dtype=dt)
-    delta = jnp.sum(yadj) / n_obs + jnp.sqrt(ve / n_obs) * z
+    delta = jnp.sum(yadj) / n + jnp.sqrt(ve / n) * z
     mu = mu + delta
-    # padded rows must stay exactly zero (they feed sum(yadj) and yadj.yadj)
-    yadj = yadj - (jnp.where(row_real, delta, 0.0) if spec.row_padded else delta)
+    yadj = yadj - delta
 
     # --- fixed covariates, sequential (src/Bayes.cpp:484-494) ---
     if spec.nc:
@@ -788,8 +772,7 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, key, state: ChainState):
         lhs = counts + ve / vrtmp[i]
         zr = jax.random.normal(kz, (nlev,), dtype=dt)
         new = rhs / lhs + jnp.sqrt(ve / lhs) * zr
-        upd = (old - new)[codes]
-        yadj = yadj + (jnp.where(row_real, upd, 0.0) if spec.row_padded else upd)
+        yadj = yadj + (old - new)[codes]
         chi = 2.0 * jax.random.gamma(kchi, jnp.asarray((nlev + spec.dfr) / 2.0, dt), dtype=dt)
         vrtmp = vrtmp.at[i].set((jnp.dot(new, new) + spec.s2r * spec.dfr) / chi)
         vr = vr.at[i].set(_var(new))
@@ -1519,10 +1502,7 @@ def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR,
         tail = epsl_estR[data.epsl_codes]
         pred = pred.at[n - spec.ne:].add(tail)
         u_new = u_new.at[n - spec.ne:].add(tail)
-    yadj_new = data.y - pred
-    if spec.row_padded:
-        yadj_new = jnp.where(jnp.arange(n) < spec.n_obs, yadj_new, 0.0)
-    return yadj_new, u_new
+    return data.y - pred, u_new
 
 
 def _post_sweep(spec: GibbsSpec, data: GibbsData, key, state: ChainState, pre,
@@ -1553,17 +1533,10 @@ def _post_sweep(spec: GibbsSpec, data: GibbsData, key, state: ChainState, pre,
         va = varg
 
     # --- genetic + residual variances (src/Bayes.cpp:819-823) ---
-    if spec.row_padded:
-        # masked sample variance over the real rows (pads are exactly 0)
-        su = jnp.sum(u)
-        vara = (jnp.dot(u, u, precision=HIGHEST) - su * su / spec.n_obs) / (
-            spec.n_obs - 1
-        )
-    else:
-        vara = _var(u)
+    vara = _var(u)
     kve = jax.random.fold_in(key, STREAM_VE)
     chi_e = 2.0 * jax.random.gamma(
-        kve, jnp.asarray((spec.n_obs + spec.dfvare) / 2.0, dt), dtype=dt
+        kve, jnp.asarray((spec.n + spec.dfvare) / 2.0, dt), dtype=dt
     )
     vare = (jnp.dot(yadj, yadj, precision=HIGHEST) + spec.s2vare * spec.dfvare) / chi_e
 
@@ -1692,8 +1665,7 @@ def pad_to_block(m: int, block: int) -> int:
 def prepare_gibbs_data(
     y, M, *, C=None, r_codes=(), r_nlevels=(), fold=None, windindx=None, nw=0,
     K=None, Kval=None, epsl_yJ=None, epsl_A=None, epsl_codes=None, qe=0,
-    block=64, dtype=jnp.float32, geno_dtype=None, pad_n=False,
-    nblocks_multiple=1,
+    block=64, dtype=jnp.float32, geno_dtype=None, nblocks_multiple=1,
 ):
     """Build the device-resident GibbsData (block layout, Gram matrices, stats).
 
@@ -1701,27 +1673,9 @@ def prepare_gibbs_data(
     capacity and sweep bandwidth vs f32); the Gram matrices are built with
     exact int32 accumulation (entries <= 4n < 2^24 stay exact in f32) and
     the sweep casts each block to f32.
-
-    pad_n=True zero-pads the individual axis up to a multiple of 512.  Zero
-    rows are exact no-ops in every dot product; callers must put the PADDED
-    n in GibbsSpec.n (array sizes) and the real count in GibbsSpec.n_real
-    (all statistics use n_real).
     """
     y = jnp.asarray(y, dtype)
     n = int(y.shape[0])
-    n_real = n
-    if pad_n:
-        if K is not None or epsl_A is not None or epsl_yJ is not None:
-            raise ValueError("pad_n is not supported with BSLMM/epsilon terms")
-        n_pad_rows = pad_to_block(n, 512)
-        if n_pad_rows != n:
-            y = jnp.pad(y, (0, n_pad_rows - n))
-            if C is not None:
-                C = np.pad(np.asarray(C), ((0, n_pad_rows - n), (0, 0)))
-            r_codes = tuple(
-                np.pad(np.asarray(c), (0, n_pad_rows - n)) for c in r_codes
-            )
-            n = n_pad_rows
     use_int8 = geno_dtype in ("int8", jnp.int8, np.int8)
     M_np = np.asarray(M)
     m = int(M_np.shape[1])
@@ -1755,11 +1709,11 @@ def prepare_gibbs_data(
         if not np.issubdtype(M_np.dtype, np.integer):
             if not np.all(M_np == np.round(M_np)):
                 raise ValueError("geno_dtype='int8' requires integer genotype codes")
-        if m_pad == m and n == n_real and M_np.dtype == np.int8:
+        if m_pad == m and M_np.dtype == np.int8:
             Mi = np.ascontiguousarray(M_np)
         else:
             Mi = np.zeros((n, m_pad), dtype=np.int8)
-            Mi[:n_real, :m] = M_np.astype(np.int8)
+            Mi[:, :m] = M_np.astype(np.int8)
         X_blocks = jnp.asarray(Mi.reshape(n, nblocks, block).transpose(1, 0, 2))
 
         # exact integer Gram (int8 x int8 -> int32), cast to f32 (exact
@@ -1786,23 +1740,18 @@ def prepare_gibbs_data(
         ).reshape(m_pad)
         s1 = np.asarray(s1_dev, dtype=np.float64).reshape(m_pad)
         xpx = jnp.asarray(s2, dtype)
-        vx = jnp.asarray((s2 - s1 * s1 / n_real) / (n_real - 1), dtype)
+        vx = jnp.asarray((s2 - s1 * s1 / n) / (n - 1), dtype)
     else:
         M_j = jnp.asarray(M_np, dtype)
         if m_pad != m:
             M_j = jnp.pad(M_j, ((0, 0), (0, m_pad - m)))
-        if n != n_real:
-            M_j = jnp.pad(M_j, ((0, n - n_real), (0, 0)))
         X_blocks = M_j.reshape(n, nblocks, block).transpose(1, 0, 2)
         W_blocks = jnp.einsum("bnk,bnl->bkl", X_blocks, X_blocks, precision=HIGHEST)
         xpx = jnp.sum(M_j * M_j, axis=0)
         # centered two-pass variance: exact 0 for constant (monomorphic)
-        # columns, unlike the E[x^2]-E[x]^2 form which leaves rounding dust;
-        # padded rows are excluded from the centering mask
-        col_mean = jnp.sum(M_j, axis=0, keepdims=True) / n_real
-        row_real = (jnp.arange(n) < n_real)[:, None]
-        Mc = jnp.where(row_real, M_j - col_mean, 0.0)
-        vx = jnp.sum(Mc * Mc, axis=0) / (n_real - 1)
+        # columns, unlike the E[x^2]-E[x]^2 form which leaves rounding dust
+        Mc = M_j - jnp.mean(M_j, axis=0, keepdims=True)
+        vx = jnp.sum(Mc * Mc, axis=0) / (n - 1)
     real = jnp.arange(m_pad) < m
     vx = jnp.where(real, vx, 0.0)
 
@@ -1813,11 +1762,8 @@ def prepare_gibbs_data(
     cpc = jnp.sum(C * C, axis=0)
 
     r_codes_t = tuple(jnp.asarray(c, jnp.int32) for c in r_codes)
-    # padded rows carry code 0 but must not inflate the level counts
-    row_w = (jnp.ones((n,), dtype) if n == n_real
-             else (jnp.arange(n) < n_real).astype(dtype))
     r_counts_t = tuple(
-        jax.ops.segment_sum(row_w, c, num_segments=int(nl))
+        jax.ops.segment_sum(jnp.ones((n,), dtype), c, num_segments=int(nl))
         for c, nl in zip(r_codes_t, r_nlevels)
     )
 
@@ -1920,12 +1866,8 @@ def init_state(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init) -> Cha
     dt = data.y.dtype
     n, m_pad = spec.n, spec.m_pad
     nr = len(spec.nlevels)
-    if spec.row_padded:
-        mu0 = jnp.sum(data.y) / spec.n_obs
-        yadj0 = jnp.where(jnp.arange(n) < spec.n_obs, data.y - mu0, 0.0)
-    else:
-        mu0 = jnp.mean(data.y)
-        yadj0 = data.y - mu0
+    mu0 = jnp.mean(data.y)
+    yadj0 = data.y - mu0
     pi = jnp.asarray(pi_init, dt)
     vara_fold = (
         jnp.asarray(priors.varg, dt) * data.fold

@@ -209,7 +209,7 @@ def ibrm(
         dfvr=dfvr, s2vr=s2vr,
     )
     spec = G.GibbsSpec(
-        model=method, n=int(gdata.y.shape[0]), n_real=n,
+        model=method, n=n,
         m=m, m_pad=int(gdata.xpx.shape[0]), block=int(gdata.X_blocks.shape[2]),
         nc=nc, nlevels=nlevels, n_fold=n_fold, niter=niter, nburn=nburn, thin=thin,
         nvar0=nvar0, nw=nw, fixpi=fixpi,

@@ -272,10 +272,7 @@ def ssbrm(
         dfvr=dfvr, s2vr=s2vr,
     )
     spec = G.GibbsSpec(
-        # prepare_gibbs_data may auto-pad the row axis (ne == 0 drops the
-        # epsilon args, making the cohort pad-eligible): array sizes use the
-        # padded count, statistics the real one (mirrors ibrm)
-        model=method, n=int(gdata.y.shape[0]), n_real=n,
+        model=method, n=n,
         m=m, m_pad=int(gdata.xpx.shape[0]),
         block=int(gdata.X_blocks.shape[2]),
         nc=nc, nlevels=nlevels, n_fold=len(Pi), niter=niter, nburn=nburn, thin=thin,

@@ -8,8 +8,7 @@
 * Any other backend is an error.
 
 It also owns the persistent compile cache: `JAX_COMPILATION_CACHE_DIR` when
-set, else `.jax_cache/` at the root of the checkout (not for runs pinned to
-the CPU).
+set, else `.jax_cache/` at the root of the checkout.
 """
 
 from __future__ import annotations
@@ -57,15 +56,6 @@ def interpret() -> bool:
 def compile_cache_dir() -> str:
     """Where compiled executables persist between processes."""
     return os.environ.get(CACHE_ENV) or str(DEFAULT_CACHE_DIR)
-
-
-def cpu_only(platforms: str | None = None) -> bool:
-    """Whether JAX is pinned to the CPU (tests, rehearsals): such runs keep
-    no on-disk compile cache.  `platforms` defaults to JAX's setting."""
-    if platforms is None:
-        platforms = (jax.config.jax_platforms
-                     or os.environ.get("JAX_PLATFORMS", ""))
-    return platforms.strip().lower() == "cpu"
 
 
 def configure_compile_cache() -> str:

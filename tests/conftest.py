@@ -20,7 +20,9 @@ jax.config.update("jax_platforms", "cpu")
 # Enable x64 so exactness tests (blocked Gibbs vs. sequential oracle) can run
 # at f64 tolerance; production code derives dtype from its inputs and stays f32.
 jax.config.update("jax_enable_x64", True)
-# tests compile small programs afresh; nothing is kept in the on-disk cache
+# tests compile small programs afresh; nothing is kept in the on-disk cache,
+# in this process or in the ones the tests start (JAX reads the variable)
+os.environ["JAX_ENABLE_COMPILATION_CACHE"] = "false"
 jax.config.update("jax_enable_compilation_cache", False)
 
 import pytest  # noqa: E402

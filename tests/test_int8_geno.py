@@ -27,6 +27,35 @@ def _mk(geno_dtype, dtype, use_pallas=False):
     return data, spec, pr, pi
 
 
+@pytest.mark.parametrize("geno_dtype", ["int8", None])
+@pytest.mark.parametrize("m,B", [(96, 32), (100, 32), (40, 64)])
+def test_prepared_layout_and_stats_match_numpy(geno_dtype, m, B):
+    """Both genotype layouts: the block layout holds M (zero SNP padding
+    past m), and the column statistics and level counts match NumPy; a
+    monomorphic column has vx exactly 0."""
+    rng = np.random.default_rng(m)
+    n = 50
+    M = rng.binomial(2, 0.3, size=(n, m)).astype(np.int8)
+    M[:, 3] = 1
+    codes = rng.integers(0, 5, n)
+    data = G.prepare_gibbs_data(
+        rng.normal(size=n), M, r_codes=(codes,), r_nlevels=(5,), block=B,
+        dtype=jnp.float64, geno_dtype=geno_dtype)
+    nb, n_rows, blk = data.X_blocks.shape
+    m_pad = nb * blk
+    assert n_rows == n and m_pad >= m and m_pad % blk == 0
+    X = np.asarray(data.X_blocks).transpose(1, 0, 2).reshape(n, m_pad)
+    np.testing.assert_array_equal(X[:, :m], M)
+    assert np.all(X[:, m:] == 0)
+    Mf = M.astype(np.float64)
+    vx = np.asarray(data.vx)
+    np.testing.assert_allclose(vx[:m], Mf.var(0, ddof=1), rtol=1e-12)
+    assert vx[3] == 0.0 and np.all(vx[m:] == 0.0)
+    np.testing.assert_allclose(np.asarray(data.xpx)[:m], (Mf * Mf).sum(0))
+    np.testing.assert_array_equal(np.asarray(data.r_counts[0]),
+                                  np.bincount(codes, minlength=5))
+
+
 def test_int8_matches_f32_layout():
     data8, spec, pr, pi = _mk("int8", jnp.float64)
     dataf, _, _, _ = _mk(None, jnp.float64)

@@ -49,8 +49,12 @@ def cache_config():
     jax.config.update("jax_compilation_cache_dir", old)
 
 
-def test_compile_cache_defaults_to_checkout(monkeypatch, cache_config):
-    monkeypatch.delenv(runtime.CACHE_ENV, raising=False)
+@pytest.mark.parametrize("env", [None, ""])
+def test_compile_cache_defaults_to_checkout(monkeypatch, cache_config, env):
+    if env is None:
+        monkeypatch.delenv(runtime.CACHE_ENV, raising=False)
+    else:
+        monkeypatch.setenv(runtime.CACHE_ENV, env)
     path = runtime.configure_compile_cache()
     assert path == str(REPO / ".jax_cache")
     assert jax.config.jax_compilation_cache_dir == path
@@ -64,13 +68,20 @@ def test_compile_cache_follows_env(monkeypatch, tmp_path, cache_config):
     assert jax.config.jax_compilation_cache_dir is None
 
 
-@pytest.mark.parametrize("platforms,cpu", [
-    ("cpu", True), (" CPU ", True), ("cuda", False), ("", False),
-    ("cuda,cpu", False),
-])
-def test_cpu_only_runs_keep_no_cache(platforms, cpu):
-    assert runtime.cpu_only(platforms) is cpu
-    assert runtime.cpu_only()  # the test suite itself is pinned to the CPU
+def test_import_sets_the_cache_and_tests_keep_none():
+    """Importing the package points the cache at its directory on every
+    platform; the test suite switches the cache off, here and in the
+    processes it starts."""
+    assert jax.config.jax_compilation_cache_dir == runtime.compile_cache_dir()
+    assert jax.config.jax_enable_compilation_cache is False
+    r = subprocess.run(
+        [sys.executable, "-c", "import jax, hibayes_tpu; "
+         "print(jax.config.jax_enable_compilation_cache, "
+         "jax.config.jax_compilation_cache_dir)"],
+        env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["False", runtime.compile_cache_dir()]
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

@@ -411,8 +411,8 @@ def test_ssbrm_scale_synthetic_no_dense_operator(monkeypatch):
 
 def test_ssbrm_ne0_large_n_row_padding():
     """ne == 0 (every phenotyped individual genotyped) drops the epsilon args
-    at n > 4096: the GibbsSpec must carry the array n / real n_real pair of
-    the prepared data or the trace crashes on a shape mismatch."""
+    at n > 4096: the GibbsSpec's n must match the rows of the prepared data
+    or the trace crashes on a shape mismatch."""
     rng = np.random.default_rng(11)
     ids, sires, dams = _random_pedigree(200, 300, seed=9)  # 500 pedigree ids
     n_g, m = 5000, 64
